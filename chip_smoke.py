@@ -17,6 +17,11 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    also equal the reference: ``golden.window_drtuples``, the JAX
    package's numpy model (metakssd_tpu/ops/golden.py), which the port's
    ``ops.sketch`` already runs for configs the kernels do not take.
+   Then K3 (membership) against its plain version, in identity and
+   values mode: about 4.19M distinct random u32 keys (>= 2^31 included)
+   and 1M sorted needles, half hits, with duplicates; a clustered
+   haystack whose needle blocks span more than the staged window; 1, 100,
+   2047 and 0 needles; an empty haystack; 0xFFFFFFFF present and absent.
    Prints each kernel's time beside its plain version's (CUDA events,
    after a warm-up);
 4. slice: 1024 synthetic 1 Mbp genomes -> MarkerDB with the port's
@@ -27,10 +32,21 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    and K1 and K2 both ran in ``profile``.  Checks that the profile names
    exactly sampled genomes and every genome of coverage >= 1x, and that
    ``--device cpu`` (the plain versions) writes byte-identical TSVs on the
-   first 200K reads.
+   first 200K reads;
+5. search: the same genomes sketched at K8S5L2 (the prokaryote default)
+   as a reference, and 128 query genomes of 1 Mbp (16 substituted copies
+   of distinct references at each of 0.1, 0.5, 1, 2, 5 and 10%, and 32
+   unrelated ones).  ``dist -r`` runs on the card (launch counts zeroed
+   before it: K3 must run), with ``--device cpu``, against the stage-II
+   mco dir (``--component_sz 6``) and with ``--shard-db 1``.  The four
+   distance.out files must be byte-identical, every substituted query's
+   best reference by Jaccard must be its source, the median Jaccard
+   must fall strictly with the rate, and no unrelated query may reach
+   Jaccard 0.01.
 
 The line before the last is the kernels' JSON record, with the launch
-counts of the ``profile`` leg; the last line is
+counts of the ``profile`` leg (K1, K2) and the ``dist -r --device
+cuda`` leg (K3); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  All data is made from --seed with numpy under
 ``.smoke_work/`` and removed at the end.
@@ -57,6 +73,14 @@ N_READS = 4_000_000               # sample reads, poly-A block included
 READ_LEN = 150
 N_POLYA = 2000                    # poly-A reads: every window survives
 CPU_READS = 200_000               # reads of the --device cpu comparison
+ALL_ONES = 0xFFFFFFFF
+MEMBER_HAY = 1 << 22              # K3 haystack draw (about 4.19M distinct)
+MEMBER_NEEDLES = 1 << 20          # K3 needles, half of them hits
+QUERY_KMERS = 4096                # K3 needles of one K8S5L2 genome query
+K8S5L2 = (8, 5, 2)                # the prokaryote default of dist search
+RATES = (0.001, 0.005, 0.01, 0.02, 0.05, 0.10)   # query substitution rates
+N_PER_RATE = 16                   # mutated queries per rate
+N_UNRELATED = 32                  # queries from no reference genome
 
 
 def _phase(name: str, t0: float) -> None:
@@ -223,17 +247,101 @@ def phase_kernels(work: str, seed: int) -> dict:
     return res
 
 
-def _write_fasta(path: str, name: str, seq_ascii) -> None:
+def _member_cases(seed: int):
+    """(name, haystack, values, needles) uint32 numpy cases of K3."""
     import numpy as np
-    full = seq_ascii.size // 80 * 80
-    lines = seq_ascii[:full].reshape(-1, 80)
-    body = np.concatenate(
-        [lines, np.full((lines.shape[0], 1), ord("\n"), np.uint8)], axis=1)
+    rng = np.random.default_rng(seed + 1)
+
+    def u32(lo, hi, n):
+        return rng.integers(lo, hi, n, dtype=np.uint64).astype(np.uint32)
+
+    def half_hits(hay, n):
+        return np.sort(np.concatenate([rng.choice(hay, n // 2),
+                                       u32(0, ALL_ONES, n - n // 2)]))
+
+    hay = np.unique(u32(0, ALL_ONES, MEMBER_HAY))     # keys >= 2^31 too
+    vals = u32(0, 1 << 32, hay.size)
+    yield "4M x 1M", hay, vals, half_hits(hay, MEMBER_NEEDLES)
+    dense = np.unique(np.concatenate([u32(0, 1 << 17, 100_000),
+                                      u32(1 << 30, 1 << 31, 1_000_000)]))
+    yield ("clustered", dense, u32(0, 1 << 32, dense.size), np.sort(
+        np.concatenate([u32(0, 1 << 17, 3000), rng.choice(dense, 200_000)])))
+    for n in (1, 100, 2047, 0):
+        yield f"{n} needles", hay, vals, half_hits(hay, n)
+    yield ("empty haystack", np.zeros(0, np.uint32), np.zeros(0, np.uint32),
+           half_hits(hay, 1000))
+    ones = np.full(3, ALL_ONES, np.uint32)
+    yield ("0xFFFFFFFF absent", hay, vals,
+           np.sort(np.concatenate([half_hits(hay, 10_000), ones])))
+    with_ones = np.append(hay, np.uint32(ALL_ONES))
+    yield ("0xFFFFFFFF present", with_ones, np.append(vals, np.uint32(7)),
+           np.sort(np.concatenate([half_hits(hay, 10_000), ones])))
+
+
+def phase_member(seed: int) -> dict:
+    """K3 vs plain on the card, in identity and values mode; returns the
+    max value error and the times at 4M x 1M."""
+    import numpy as np
+    import torch
+    from metakssd_tpu_torch.ops import merge
+
+    dev = torch.device("cuda")
+    err = 0
+    timed = None
+    for name, hay, vals, needles in _member_cases(seed):
+        h = merge.u32_tensor(hay).to(dev)
+        nd = merge.u32_tensor(needles).to(dev)
+        for v in (None, merge.u32_tensor(vals).to(dev)):
+            m, val = merge.member(h, v, nd)
+            pm, pv = merge.member_plain(h, v, nd)
+            torch.cuda.synchronize()
+            _check(torch.equal(m, pm), f"K3 {name}: member differs from plain")
+            if needles.size:
+                err = max(err, int(((val.long() & 0xFFFFFFFF)
+                                    - (pv.long() & 0xFFFFFFFF))
+                                   .abs().max().item()))
+            _check(torch.equal(val, pv), f"K3 {name}: value differs")
+        hits = int(m.sum().item())
+        if name.startswith("0xFFFFFFFF"):
+            tail = m[nd == -1].bool()
+            _check(bool(tail.all()) if "present" in name
+                   else not bool(tail.any()), f"K3 {name}")
+        print(f"  K3 {name:18s} haystack {hay.size:8d} needles "
+              f"{needles.size:8d} members {hits:8d} == plain", flush=True)
+        if name == "4M x 1M":
+            timed = (h, merge.u32_tensor(vals).to(dev), nd)
+            _check(hits >= needles.size // 2, "K3 4M x 1M: too few hits")
+    h, v, nd = timed
+    one_query = nd[::nd.numel() // QUERY_KMERS][:QUERY_KMERS].contiguous()
+    t = {}
+    for label, x in (("", nd), ("query_", one_query)):
+        for mode, vv in (("", None), ("values_", v)):
+            t[f"{label}{mode}k3"] = _time_ms(
+                lambda: merge.member(h, vv, x), 20)
+            t[f"{label}{mode}plain"] = _time_ms(
+                lambda: merge.member_plain(h, vv, x), 5)
+    for name, ms in t.items():
+        n = one_query.numel() if name.startswith("query_") else nd.numel()
+        print(f"  K3 {name:20s} {ms:10.4f} ms  {n / ms / 1e3:10.2f} "
+              f"Mneedles/s  ({h.numel()} x {n})", flush=True)
+    return {"err": err, "times": t}
+
+
+def _write_fasta(path: str, name: str, seq_ascii) -> None:
+    """One record, its sequence on one line (the numpy fasta parser, which
+    runs where the native one does not build, costs a Python step per
+    line)."""
     with open(path, "wb") as f:
         f.write(f">{name} synthetic genome\n".encode())
-        f.write(body.tobytes())
-        if full < seq_ascii.size:
-            f.write(seq_ascii[full:].tobytes() + b"\n")
+        f.write(seq_ascii.tobytes() + b"\n")
+
+
+def _read_fasta(path: str):
+    """The sequence of a file written by _write_fasta, as ASCII uint8."""
+    import numpy as np
+    with open(path, "rb") as f:
+        body = f.read().split(b"\n", 1)[1].replace(b"\n", b"")
+    return np.frombuffer(body, np.uint8).copy()
 
 
 def _write_fastq(path: str, reads_ascii) -> None:
@@ -353,8 +461,8 @@ def phase_slice(work: str, seed: int) -> dict:
           f"{json.dumps(stages)}", flush=True)
     print(f"  peak device memory (dist and profile) {peak / 2**20:.1f} MiB",
           flush=True)
-    _check(all(v > 0 for v in launches.values()),
-           f"a kernel never launched in profile: {launches}")
+    _check(launches["sketch_compact"] > 0 and launches["sketch_full"] > 0,
+           f"a sketch kernel never launched in profile: {launches}")
 
     rows = _tsv_rows(os.path.join(out, "abundance.tsv"))
     names = {r[1] for r in rows}
@@ -389,6 +497,128 @@ def phase_slice(work: str, seed: int) -> dict:
     print("  subset: --device cuda and --device cpu TSVs byte-identical",
           flush=True)
     return {"launches": launches}
+
+
+def make_search_queries(work: str, gdir: str, seed: int):
+    """128 query genomes: N_PER_RATE substituted copies of distinct
+    reference genomes at each of RATES, and N_UNRELATED random ones.
+    Returns (query dir, {query path: (source path or None, rate)})."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 2)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    refs = sorted(os.listdir(gdir))
+    src = rng.choice(len(refs), len(RATES) * N_PER_RATE, replace=False)
+    qdir = os.path.join(work, "queries")
+    os.makedirs(qdir)
+    truth = {}
+    for i in range(len(RATES) * N_PER_RATE + N_UNRELATED):
+        path = os.path.join(qdir, f"q{i:03d}.fa")
+        if i < src.size:
+            gpath, rate = os.path.join(gdir, refs[src[i]]), \
+                RATES[i // N_PER_RATE]
+            seq = _read_fasta(gpath)
+            hit = np.flatnonzero(rng.random(seq.size) < rate)
+            code = np.searchsorted(acgt, seq[hit])
+            seq[hit] = acgt[(code + rng.integers(1, 4, hit.size)) % 4]
+            truth[path] = (gpath, rate)
+        else:
+            seq = acgt[rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)]
+            truth[path] = (None, None)
+        _write_fasta(path, f"q{i:03d}", seq)
+    return qdir, truth
+
+
+def _run_cli(label: str, argv: list) -> float:
+    from metakssd_tpu_torch import cli
+    from metakssd_tpu_torch.pipeline import TIMER
+    t = time.time()
+    _check(cli.main(argv) == 0, f"{label} failed: {argv}")
+    dt = time.time() - t
+    print(f"  {label:24s} {dt:9.3f} s  stages "
+          f"{json.dumps(_stage_seconds(TIMER))}", flush=True)
+    return dt
+
+
+def phase_search(work: str, seed: int) -> dict:
+    """The search leg at K8S5L2: reference and query sketches, then
+    ``dist -r`` on the card (K3), on the CPU, against the stage-II mco dir
+    and through ``--shard-db 1``; all four distance.out byte-identical."""
+    import numpy as np
+    import torch
+    from metakssd_tpu_torch.ops import sketch_cuda
+
+    gdir = os.path.join(work, "genomes")
+    shufp = os.path.join(work, "K8S5L2.shuf")
+    write_zero_accepted_shuf(shufp, K8S5L2, seed)
+    refco, qryco = os.path.join(work, "refco"), os.path.join(work, "qryco")
+    torch.cuda.reset_peak_memory_stats()
+    sketch_cuda.reset_launches()
+    _run_cli("dist (reference)", ["dist", "-L", shufp, "-o", refco,
+                                  "--device", "cuda", gdir])
+    _check(sketch_cuda.LAUNCHES["sketch_compact"] > 0,
+           "K1 never launched in the reference build")
+    t = time.time()
+    qdir, truth = make_search_queries(work, gdir, seed)
+    print(f"  query data: {len(truth)} genomes in {time.time() - t:.1f} s",
+          flush=True)
+    _run_cli("dist (queries)", ["dist", "-L", shufp, "-o", qryco,
+                                "--device", "cuda", qdir])
+
+    out = {k: os.path.join(work, f"d_{k}")
+           for k in ("cuda", "cpu", "mco", "shard")}
+    sketch_cuda.reset_launches()
+    secs = {"cuda": _run_cli("dist -r --device cuda", [
+        "dist", "-r", refco, "-o", out["cuda"], "--device", "cuda", qryco])}
+    launches = dict(sketch_cuda.LAUNCHES)
+    print(f"  search launches {launches}", flush=True)
+    _check(launches["member"] > 0, f"K3 never launched in the search: "
+                                   f"{launches}")
+    secs["cpu"] = _run_cli("dist -r --device cpu", [
+        "dist", "-r", refco, "-o", out["cpu"], "--device", "cpu", qryco])
+    refmco = os.path.join(work, "refmco")
+    _run_cli("dist -r (stage II)", ["dist", "-r", refco, "-o", refmco,
+                                    "--component_sz", "6"])
+    secs["mco"] = _run_cli("dist -r mco", [
+        "dist", "-r", refmco, "-o", out["mco"], "--device", "cuda", qryco])
+    secs["shard"] = _run_cli("dist -r --shard-db 1", [
+        "dist", "-r", refco, "--shard-db", "1", "-o", out["shard"],
+        "--device", "cuda", qryco])
+    print(f"  peak device memory (search leg) "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+
+    texts = {}
+    for k, d in out.items():
+        with open(os.path.join(d, "distance.out"), "rb") as f:
+            texts[k] = f.read()
+    _check(all(t == texts["cuda"] for t in texts.values()),
+           "the four distance.out files differ")
+    jac: dict = {}
+    for ln in texts["cuda"].decode().splitlines()[1:]:
+        col = ln.split("\t")
+        jac.setdefault(col[0], {})[col[1]] = float(col[3])
+    _check(set(jac) == set(truth) and all(len(v) == N_GENOMES
+                                          for v in jac.values()),
+           "distance.out does not hold every query x reference pair")
+    by_rate: dict = {}
+    for q, (src, rate) in truth.items():
+        best = max(jac[q], key=jac[q].get)
+        if src is None:
+            _check(jac[q][best] < 0.01, f"unrelated {q} reaches Jaccard "
+                                        f"{jac[q][best]} against {best}")
+            continue
+        _check(best == src, f"{q}: best reference {best}, source {src}")
+        by_rate.setdefault(rate, []).append(jac[q][src])
+    med = [float(np.median(by_rate[r])) for r in RATES]
+    _check(all(a > b for a, b in zip(med, med[1:])),
+           f"median Jaccard does not fall with the rate: {med}")
+    unrelated = max(max(jac[q].values())
+                    for q, (src, _) in truth.items() if src is None)
+    print("  search: 4 distance.out byte-identical "
+          f"({len(texts['cuda'])} bytes); every mutated query's best "
+          "reference is its source; median Jaccard by rate "
+          + ", ".join(f"{r}: {m:.6f}" for r, m in zip(RATES, med))
+          + f"; unrelated queries max Jaccard {unrelated:.6f}", flush=True)
+    return {"launches": launches, "seconds": secs}
 
 
 def main(argv=None) -> int:
@@ -428,15 +658,21 @@ def main(argv=None) -> int:
     try:
         t0 = time.time()
         kres = phase_kernels(work, args.seed)
+        mres = phase_member(args.seed)
         _phase("kernels", t0)
 
         t0 = time.time()
         sres = phase_slice(work, args.seed)
         _phase("slice", t0)
+
+        t0 = time.time()
+        qres = phase_search(work, args.seed)
+        _phase("search", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     t = kres["times"]
+    mt = mres["times"]
     print(json.dumps({"kernels": [
         {"name": "sketch_compact (K1)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/sketch.cu",
@@ -450,6 +686,12 @@ def main(argv=None) -> int:
          "launches": sres["launches"]["sketch_full"],
          "max_abs_err": kres["k2_err"], "ms": t["k2"],
          "plain_ms": t["k2_plain"]},
+        {"name": "member (K3)", "route": "cuda",
+         "source": "metakssd_tpu_torch/csrc/member.cu",
+         "replaces": "metakssd_tpu/ops/merge_device.py:29",
+         "launches": qres["launches"]["member"],
+         "max_abs_err": mres["err"], "ms": mt["k3"],
+         "plain_ms": mt["plain"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,7 @@ It imports ``torch`` and never ``jax``.  The jax-free layers of
 golden model, postprocessing) are imported, not copied; every module that
 touched jax has its counterpart here, and every Pallas kernel on the
 ported path is a hand-written CUDA kernel (``csrc/``) with a plain
-PyTorch version beside it (``ops/sketch_cuda.py``).
+PyTorch version beside it (``ops/sketch_cuda.py``, ``ops/merge.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,12 @@
 """Build the port's CUDA sources at first use and bind them with ctypes.
 
-``csrc/*.cu`` compiles with ``nvcc`` into one shared library with a plain
-C interface (no PyTorch headers, so the build takes seconds).  The
-library lands in ``metakssd_tpu_torch/_build/``, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-loaded as is.  Nothing here runs at import time: the CPU-only test
-environment imports every module and has no ``nvcc``.
+Each ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds).  The library
+lands in ``metakssd_tpu_torch/_build/``, named by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one is loaded as
+is.  Nothing here runs at import time: the CPU-only test environment
+imports every module and has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -36,6 +37,9 @@ _SIGNATURES = {
     # out_dr, out_keep, stream
     "mkssd_sketch_full": [_P, _LL, _LL, _P, _P, _I, _I, _I, _I,
                           _P, _P, _P],
+    # hay, nh, values (NULL = identity), needles, nn, out_member,
+    # out_value, stream
+    "mkssd_member": [_P, _LL, _P, _P, _LL, _P, _P, _P],
 }
 
 _lib = None
@@ -74,13 +78,36 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    build_log = proc.stderr
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, errors = [], []
+    for src, _, proc in jobs:
+        out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src} ({proc.returncode}):\n"
+                          f"{out}{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = f"{so}.{tag}"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_log = "".join(logs)
     os.replace(tmp, so)
     return so
 

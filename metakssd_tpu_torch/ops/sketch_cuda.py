@@ -29,9 +29,10 @@ import torch
 
 from metakssd_tpu_torch.state import AcceptTables
 
-# Launches of each kernel (not of its plain version).  Reset with
-# reset_launches(); chip_smoke.py reads them around the main path.
-LAUNCHES = {"sketch_compact": 0, "sketch_full": 0}
+# Launches of each kernel of csrc/ (not of its plain version): K1, K2 and
+# K3 (``member``, counted by ops/merge.py).  Reset with reset_launches();
+# chip_smoke.py reads them around each leg of the main path.
+LAUNCHES = {"sketch_compact": 0, "sketch_full": 0, "member": 0}
 
 CHUNK_WINDOWS = 1 << 26        # windows per device dispatch (64M)
 DROPPED = 0xFFFFFFFF

@@ -1,6 +1,6 @@
 """State carried from the JAX package's host structures onto the device.
 
-Two pieces of state cross over unchanged in content:
+Three pieces of state cross over unchanged in content:
 
 * the sketch filter tables, ``DimShuffle.device_tables()``'s
   ``(accept_tups, pfilters)`` (numpy uint32), which become int32 tensors
@@ -11,7 +11,12 @@ Two pieces of state cross over unchanged in content:
   arrays that ``metakssd_tpu.composite.stage_markerdb`` builds or mmaps
   from its ``.mkssd_stage/c{c}.{rk,st,gs}.npy`` sidecars
   (``composite.py:157-222``), which become the port's device profile
-  index.
+  index;
+* a sketch dir's per-component inverted index,
+  ``mco_fmt.InvertedIndex.from_codir``'s ``(kmers, offsets, gids)``,
+  whose sorted distinct k-mers become the dist search haystack (u32 bits
+  in int32, as above); offsets and gids stay on the host, where the
+  postings are counted.
 """
 
 from __future__ import annotations
@@ -57,3 +62,10 @@ def profile_index_from_staged(comp_idx: list, nref: int, device):
               np.asarray(ci.gid_sorted))
              for ci in comp_idx]
     return DeviceProfileIndex(comps, nref, device)
+
+
+def haystack_from_inverted(inv, device):
+    """The port's ``StaticHaystack`` of one component's inverted index, in
+    identity mode: the value of a hit is its posting row."""
+    from metakssd_tpu_torch.ops.merge import StaticHaystack
+    return StaticHaystack(inv.kmers, None, device)

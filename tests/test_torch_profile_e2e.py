@@ -168,12 +168,15 @@ def test_cuda_without_gpu_raises():
 
 
 def test_slice_runs_without_jax(slice_setup):
-    """The port never imports jax: a fresh interpreter runs dist and
-    profile on the CPU, then checks sys.modules."""
+    """The port never imports jax: a fresh interpreter runs dist, profile
+    and dist -r (sketch search) on the CPU, then checks sys.modules."""
+    from metakssd_tpu import dist as jax_dist
     tmp, shufp, gdir, refdir, fq = slice_setup
     jax_composite.wait_staging()
     ref = str(tmp / "jax_prof_nojax")
     jax_profile_e2e.profile_fastq([fq], refdir, shufp, ref)
+    ref_search = str(tmp / "jax_search_nojax")
+    jax_dist.run_dist_search(refdir, refdir, ref_search, use_device=False)
     out = str(tmp / "nojax")
     code = textwrap.dedent(f"""
         import sys
@@ -182,6 +185,9 @@ def test_slice_runs_without_jax(slice_setup):
                          "--device", "cpu", {gdir!r}]) == 0
         assert cli.main(["profile", "-L", {shufp!r}, "-r", {refdir!r},
                          "-o", {out!r}, "--device", "cpu", {fq!r}]) == 0
+        assert cli.main(["dist", "-r", {out + "_db"!r}, "-o",
+                         {out + "_search"!r}, "--device", "cpu",
+                         {out + "_db"!r}]) == 0
         assert "jax" not in sys.modules, "jax was imported"
         print("NOJAX-OK")
     """)
@@ -192,3 +198,4 @@ def test_slice_runs_without_jax(slice_setup):
     assert "NOJAX-OK" in proc.stdout
     _same_tree(refdir, out + "_db")
     _same_files(ref, out)
+    _same_files(ref_search, out + "_search", names=("distance.out",))
