@@ -42,11 +42,31 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    distance.out files must be byte-identical, every substituted query's
    best reference by Jaccard must be its source, the median Jaccard
    must fall strictly with the rate, and no unrelated query may reach
-   Jaccard 0.01.
+   Jaccard 0.01;
+6. set: a synthetic L3K11 sketch dir at a MarkerDB build's scale (65,536
+   genomes in 16,384 taxa of 4, about 1,024 ids each, 67M ids in all,
+   and 64 genomes of taxid 0) goes through ``set -g`` -> ``-q`` -> ``-i``,
+   then ``-u``, ``-s`` and ``-c``, with ``--device cuda`` (launch counts
+   zeroed before it: K3 must run) and with ``--device cpu``; every output
+   dir must be byte-identical between the two.  Then the real chain on
+   phase 4's genomes (taxa of 4 consecutive genomes): ``set -g/-q/-i``,
+   ``dist -A`` of the first 200K reads and ``composite -q`` and ``-q -b``
+   on both devices; TSVs and ``.abv`` files byte-identical, and every
+   taxon holding a genome of coverage >= 1x in those reads reported;
+7. abv: one abundance vector per taxon of phase 6's markers (16,384
+   vectors over 16,384 species dims, 30-600 nonzero dims of skewed
+   prevalence, lognormal percentages), ``composite -i``, and 256 queries
+   (192 DB vectors, 64 perturbed copies) through ``composite -s 0/1/2``:
+   sparse text identical between the routes; ``--dense`` on the card (a
+   1 GiB float32 DB) with the sparse path's overlap sets, within 2e-3 of
+   its measures (a query's L2 to itself excepted: ROADMAP.md section 3)
+   and every DB query its own top cosine hit; ``--dense --device cpu`` on
+   16 queries within 2e-3 of the card's;
+8. cuda tests: ``pytest -m cuda`` on the three cuda-marked test files.
 
 The line before the last is the kernels' JSON record, with the launch
-counts of the ``profile`` leg (K1, K2) and the ``dist -r --device
-cuda`` leg (K3); the last line is
+counts of the ``profile`` leg (K1, K2) and of the ``dist -r --device
+cuda`` and ``set --device cuda`` legs (K3); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  All data is made from --seed with numpy under
 ``.smoke_work/`` and removed at the end.
@@ -81,6 +101,18 @@ K8S5L2 = (8, 5, 2)                # the prokaryote default of dist search
 RATES = (0.001, 0.005, 0.01, 0.02, 0.05, 0.10)   # query substitution rates
 N_PER_RATE = 16                   # mutated queries per rate
 N_UNRELATED = 32                  # queries from no reference genome
+SET_TAXA = 16384                  # set leg: taxa of a MarkerDB build ...
+SET_PER_TAXON = 4                 # ... of 4 genomes each ...
+SET_UNASSIGNED = 64               # ... and genomes of taxid 0 (dropped)
+SET_POOL = 1200                   # ids of a taxon's own
+SET_SHARED = 40                   # ids a taxon shares with each neighbour
+SET_KEEP = 0.8                    # share of its taxon's ids a genome holds
+CHAIN_TAXON = 4                   # real chain: taxa of 4 consecutive genomes
+ABV_DIMS = (30, 600)              # nonzero dims of an abundance vector
+ABV_DB_QUERIES = 192              # queries that are vectors of the DB ...
+ABV_PERTURBED = 64                # ... and perturbed copies of DB vectors
+ABV_CPU_QUERIES = 16              # dense queries run on the CPU too
+DENSE_TOL = 2e-3                  # dense vs sparse (tests/test_dense_abv.py)
 
 
 def _phase(name: str, t0: float) -> None:
@@ -371,7 +403,8 @@ def _write_fastq(path: str, reads_ascii) -> None:
 def make_slice_data(work: str, seed: int):
     """Genomes, the L3K11 shuffle and the read sample, all from ``seed``.
     Returns (shuf path, genome dir, fastq path, reads as ASCII
-    [N_READS, READ_LEN], {sampled genome path: coverage})."""
+    [N_READS, READ_LEN], {sampled genome path: coverage}, {sampled genome
+    path: coverage by the first CPU_READS reads})."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -396,7 +429,11 @@ def make_slice_data(work: str, seed: int):
         starts = rng.integers(0, GENOME_LEN - READ_LEN + 1, cnt)
         parts.append(kept[path][starts[:, None] + np.arange(READ_LEN)])
     reads = np.concatenate(parts)
-    reads = reads[rng.permutation(reads.shape[0])]
+    perm = rng.permutation(reads.shape[0])
+    reads = reads[perm]
+    # the first CPU_READS reads lie before the poly-A block
+    first = np.bincount(np.repeat(np.arange(len(paths)), counts)[perm]
+                        [:CPU_READS], minlength=len(paths))
     flat = reads.reshape(-1)
     flat[rng.integers(0, flat.size, flat.size // 1000)] = ord("N")
     mid = reads.shape[0] // 2
@@ -407,7 +444,9 @@ def make_slice_data(work: str, seed: int):
     _write_fastq(fq, reads)
     coverage = {path: cnt * READ_LEN / GENOME_LEN
                 for path, cnt in zip(paths, counts)}
-    return shufp, gdir, fq, reads, coverage
+    sub_coverage = {path: cnt * READ_LEN / GENOME_LEN
+                    for path, cnt in zip(paths, first)}
+    return shufp, gdir, fq, reads, coverage, sub_coverage
 
 
 def _stage_seconds(timer) -> dict:
@@ -429,7 +468,8 @@ def phase_slice(work: str, seed: int) -> dict:
     from metakssd_tpu_torch.pipeline import TIMER, native
 
     t0 = time.time()
-    shufp, gdir, fq, reads, coverage = make_slice_data(work, seed)
+    shufp, gdir, fq, reads, coverage, sub_coverage = make_slice_data(
+        work, seed)
     print(f"  data: {N_GENOMES} genomes x {GENOME_LEN} bp, "
           f"{reads.shape[0]} reads x {READ_LEN} bp ({N_POLYA} poly-A) in "
           f"{time.time() - t0:.1f} s; fastq parser: "
@@ -496,7 +536,8 @@ def phase_slice(work: str, seed: int) -> dict:
                f"{name}: --device cuda and --device cpu differ")
     print("  subset: --device cuda and --device cpu TSVs byte-identical",
           flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "shuf": shufp, "markerdb": db,
+            "subset": sub, "sub_coverage": sub_coverage}
 
 
 def make_search_queries(work: str, gdir: str, seed: int):
@@ -534,7 +575,7 @@ def _run_cli(label: str, argv: list) -> float:
     t = time.time()
     _check(cli.main(argv) == 0, f"{label} failed: {argv}")
     dt = time.time() - t
-    print(f"  {label:24s} {dt:9.3f} s  stages "
+    print(f"  {label:36s} {dt:9.3f} s  stages "
           f"{json.dumps(_stage_seconds(TIMER))}", flush=True)
     return dt
 
@@ -621,6 +662,380 @@ def phase_search(work: str, seed: int) -> dict:
     return {"launches": launches, "seconds": secs}
 
 
+def make_set_data(work: str, seed: int):
+    """A synthetic L3K11 sketch dir at a MarkerDB build's scale and its
+    taxon file.  SET_TAXA taxa of SET_PER_TAXON genomes; a taxon's pool is
+    SET_POOL ids of its own and SET_SHARED shared with each neighbouring
+    taxon (distinct random u32, >= 2^31 included); a genome holds each id
+    of its taxon's pool with probability SET_KEEP (about 1,024 ids).  After
+    every (SET_TAXA / SET_UNASSIGNED)-th taxon comes a genome of taxid 0
+    that copies a random taxon's pool.  Returns (sketch dir, taxon file,
+    number of ids)."""
+    import numpy as np
+    from metakssd_tpu_torch.pipeline import CoStat, write_codir
+    rng = np.random.default_rng(seed + 3)
+    t = SET_TAXA
+    need = t * (SET_POOL + SET_SHARED)
+    ids = np.unique(rng.integers(0, 1 << 32, need + need // 8,
+                                 dtype=np.uint64).astype(np.uint32))
+    ids = rng.permutation(ids)[:need]
+    own = ids[:t * SET_POOL].reshape(t, SET_POOL)
+    shared = ids[t * SET_POOL:].reshape(t, SET_SHARED)
+    pool = np.concatenate([own, shared, np.roll(shared, 1, axis=0)], axis=1)
+    pool.sort(axis=1)
+    taxon = np.repeat(np.arange(t), SET_PER_TAXON)
+    taxon = np.insert(taxon, np.arange(0, t, t // SET_UNASSIGNED)
+                      * SET_PER_TAXON + SET_PER_TAXON, -1)
+    rows = pool[np.where(taxon >= 0, taxon,
+                         rng.integers(0, t, taxon.size))]
+    keep = rng.random(rows.shape, dtype=np.float32) < SET_KEEP
+    flat = rows[keep]
+    del rows, pool
+    lens = keep.sum(axis=1)
+    per_genome = [[(x, None)] for x in np.split(flat, np.cumsum(lens)[:-1])]
+    co = os.path.join(work, "set_sketches")
+    write_codir(co, CoStat(
+        shuf_id=int(rng.integers(1, 2**31 - 1)), koc=False, kmerlen=22,
+        dim_rd_len=6, comp_num=1, all_ctx_ct=int(flat.size),
+        ctx_ct=lens.astype(np.uint32),
+        names=[f"genome{g:05d}.fa" for g in range(taxon.size)]), per_genome)
+    taxf = os.path.join(work, "set_taxa.tsv")
+    with open(taxf, "w") as f:
+        f.writelines(f"{1000 + x}\ttaxon{x}\n" if x >= 0 else "0\n"
+                     for x in taxon.tolist())
+    return co, taxf, int(flat.size)
+
+
+def _same_dirs(a: str, b: str, what: str) -> int:
+    """Every file of dir ``a`` byte-identical in dir ``b`` (the hidden
+    MarkerDB staging sidecars left out); returns their bytes."""
+    fa = sorted(f for f in os.listdir(a) if not f.startswith("."))
+    fb = sorted(f for f in os.listdir(b) if not f.startswith("."))
+    _check(fa == fb and fa, f"{what}: files differ: {fa} vs {fb}")
+    size = 0
+    for f in fa:
+        with open(os.path.join(a, f), "rb") as x, \
+                open(os.path.join(b, f), "rb") as y:
+            data = x.read()
+            _check(data == y.read(), f"{what}: {f} differs between devices")
+        size += len(data)
+    return size
+
+
+def _run_cli_to(label: str, argv: list, path: str) -> float:
+    """``_run_cli`` with the command's stdout written to ``path``."""
+    import contextlib
+    from metakssd_tpu_torch import cli
+    t = time.time()
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(argv)
+    dt = time.time() - t
+    _check(rc == 0, f"{label} failed: {argv}")
+    print(f"  {label:36s} {dt:9.3f} s", flush=True)
+    return dt
+
+
+def _set_leg(work: str, dev: str, co: str, taxf: str) -> str:
+    """set -g -> -q -> -i (the MarkerDB chain), then -u, -s and -c, on
+    ``dev``, in a dir of its own with outputs named relative to it (so
+    the names that -c records are the same on both devices)."""
+    wd = os.path.join(work, f"set_{dev}")
+    os.makedirs(wd)
+    here = os.getcwd()
+    os.chdir(wd)
+    try:
+        for verb, argv in (("-g", ["-g", taxf, "-o", "pan", co]),
+                           ("-q", ["-q", "-o", "uq", "pan"]),
+                           ("-i", ["-i", "uq", "-o", "mk", "pan"]),
+                           ("-u", ["-u", "-o", "u", co]),
+                           ("-s", ["-s", "uq", "-o", "s", co]),
+                           ("-c", ["-c", "-o", "c", "u", "uq"])):
+            _run_cli(f"set {verb} --device {dev}",
+                     ["set", *argv, "--device", dev])
+    finally:
+        os.chdir(here)
+    return wd
+
+
+def _real_chain(work: str, sres: dict) -> None:
+    """The MarkerDB chain on phase 4's L3K11 genomes (taxa of CHAIN_TAXON
+    consecutive genomes), then ``composite -q`` and ``-q -b`` of the
+    first CPU_READS reads on both devices: byte-identical TSVs and .abv
+    files, and every taxon holding a genome of coverage >= 1x reported."""
+    from metakssd_tpu_torch.pipeline import CoStat
+    names = CoStat.read(sres["markerdb"]).names
+    taxf = os.path.join(work, "chain_taxa.tsv")
+    with open(taxf, "w") as f:
+        f.writelines(f"{1 + i // CHAIN_TAXON}\ttaxon{i // CHAIN_TAXON}\n"
+                     for i in range(len(names)))
+    qco = os.path.join(work, "chain_sample")
+    _run_cli("dist -A (200K reads)", ["dist", "-L", sres["shuf"], "-A", "-o",
+                                      qco, "--device", "cuda",
+                                      sres["subset"]])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = {k: os.path.join(work, f"chain_{dev}_{k}")
+             for k in ("pan", "uq", "mk", "abv")}
+        _run_cli(f"chain set -g --device {dev}", [
+            "set", "-g", taxf, "-o", d["pan"], "--device", dev,
+            sres["markerdb"]])
+        _run_cli(f"chain set -q --device {dev}", [
+            "set", "-q", "-o", d["uq"], "--device", dev, d["pan"]])
+        _run_cli(f"chain set -i --device {dev}", [
+            "set", "-i", d["uq"], "-o", d["mk"], "--device", dev, d["pan"]])
+        d["tsv"] = os.path.join(work, f"chain_{dev}.tsv")
+        _run_cli_to(f"chain composite -q --device {dev}", [
+            "composite", "-r", d["mk"], "-q", qco, "--device", dev],
+            d["tsv"])
+        _run_cli(f"chain composite -q -b --device {dev}", [
+            "composite", "-r", d["mk"], "-q", qco, "-b", "-o", d["abv"],
+            "--device", dev])
+        out[dev] = d
+    for k in ("pan", "uq", "mk", "abv"):
+        _same_dirs(out["cuda"][k], out["cpu"][k], f"chain {k}")
+    with open(out["cuda"]["tsv"], "rb") as a, \
+            open(out["cpu"]["tsv"], "rb") as b:
+        text = a.read()
+        _check(text == b.read() and text, "chain composite TSVs differ")
+    reported = {ln.split("\t")[1] for ln in text.decode().splitlines()}
+
+    def taxon_of(path):
+        i = names.index(path) // CHAIN_TAXON
+        return f"{1 + i}_taxon{i}"
+    cov = sres["sub_coverage"]
+    want = {taxon_of(p) for p, c in cov.items() if c >= 1}
+    sampled = {taxon_of(p) for p in cov}
+    _check(want and want <= reported,
+           f"taxa with a genome of coverage >= 1x missing: "
+           f"{sorted(want - reported)}")
+    _check(reported <= sampled,
+           f"unsampled taxa reported: {sorted(reported - sampled)}")
+    print(f"  chain: {len(reported)} taxa reported, all sampled; the "
+          f"{len(want)} taxa holding a genome of coverage >= 1x all "
+          "present; TSVs, .abv files and set dirs byte-identical between "
+          "devices", flush=True)
+
+
+def phase_set(work: str, seed: int, sres: dict) -> dict:
+    """The set leg: the synthetic MarkerDB build on cuda (K3 counted) and
+    on cpu, byte-identical dirs; then the real chain."""
+    import torch
+    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.pipeline import CoStat
+    t = time.time()
+    co, taxf, nids = make_set_data(work, seed)
+    print(f"  data: {SET_TAXA * SET_PER_TAXON + SET_UNASSIGNED} genomes, "
+          f"{SET_TAXA} taxa, {nids} ids ({4 * nids / 2**20:.1f} MiB of u32) "
+          f"in {time.time() - t:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    sketch_cuda.reset_launches()
+    wd = {"cuda": _set_leg(work, "cuda", co, taxf)}
+    launches = sketch_cuda.LAUNCHES["member"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  set leg launches {dict(sketch_cuda.LAUNCHES)}; peak device "
+          f"memory {peak / 2**20:.1f} MiB", flush=True)
+    _check(launches > 0, "K3 never launched in the set leg")
+    wd["cpu"] = _set_leg(work, "cpu", co, taxf)
+    outs = sorted(os.listdir(wd["cuda"]))
+    _check(outs == sorted(os.listdir(wd["cpu"])) and len(outs) == 6,
+           f"set: output dirs {outs}")
+    size = sum(_same_dirs(os.path.join(wd["cuda"], d),
+                          os.path.join(wd["cpu"], d), f"set {d}")
+               for d in outs)
+    mk = os.path.join(wd["cuda"], "mk")
+    st = CoStat.read(mk)
+    _check(st.infile_num == SET_TAXA and "0" not in st.names,
+           f"markers hold {st.infile_num} taxa")
+    _check(0.9 * SET_TAXA * SET_POOL < st.all_ctx_ct
+           <= SET_TAXA * (SET_POOL + 2 * SET_SHARED),
+           f"markers hold {st.all_ctx_ct} ids")
+    print(f"  set: 6 output dirs ({size} bytes) byte-identical between "
+          f"--device cuda and --device cpu; {st.all_ctx_ct} markers in "
+          f"{st.infile_num} taxa", flush=True)
+    _real_chain(work, sres)
+    return {"launches": launches, "markers": mk}
+
+
+def _abv_blocks(path: str, index_of: dict):
+    """[(header, sample ids, values)] per query of an abv search text."""
+    import numpy as np
+    with open(path, "rb") as f:
+        blocks = f.read().split(b"#Sample\t")[1:]
+    out = []
+    for blk in blocks:
+        head, _, body = blk.partition(b"\n")
+        cols = body.replace(b"\n", b"\t").split(b"\t")[:-1]
+        ids = np.fromiter((index_of[n] for n in cols[0::2]), np.int64,
+                          len(cols) // 2)
+        vals = np.array(cols[1::2]).astype(np.float64) if ids.size \
+            else np.zeros(0)
+        out.append((head, ids, vals))
+    return out
+
+
+def make_abv_data(work: str, refdir: str, seed: int):
+    """One .abv vector per taxon of ``refdir`` over its species dims:
+    ABV_DIMS nonzero dims drawn without replacement with prevalence
+    falling as 1/rank (Gumbel top-k), lognormal percentages summing to 100.
+    Queries: ABV_DB_QUERIES vectors of the DB and ABV_PERTURBED perturbed
+    copies of others.  Returns (query paths, sample names, DB queries)."""
+    import numpy as np
+    from metakssd_tpu_torch.composite import write_abv_file
+    from metakssd_tpu_torch.pipeline import CoStat
+    rng = np.random.default_rng(seed + 4)
+    nsp = CoStat.read(refdir).infile_num
+    nvec = nsp
+    vdir = os.path.join(refdir, "abundance_Vec")
+    os.makedirs(vdir)
+    logp = -np.log(np.arange(1, nsp + 1, dtype=np.float64))
+    nd = rng.integers(ABV_DIMS[0], ABV_DIMS[1] + 1, nvec)
+    top_k = ABV_DIMS[1]
+    names = [f"v{i:05d}.abv" for i in range(nvec)]
+    vecs = []
+    for lo in range(0, nvec, 1024):
+        key = logp + rng.gumbel(size=(min(1024, nvec - lo), nsp))
+        top = np.argpartition(-key, top_k, axis=1)[:, :top_k]
+        top = np.take_along_axis(top, np.argsort(
+            -np.take_along_axis(key, top, 1), axis=1), 1)
+        for r in range(top.shape[0]):
+            d = np.sort(top[r, :nd[lo + r]]).astype(np.int32)
+            pct = rng.lognormal(0.0, 1.0, d.size)
+            vecs.append((d, pct))
+            write_abv_file(os.path.join(vdir, names[lo + r]), d,
+                           (pct / pct.sum() * 100).astype(np.float32))
+    qdir = os.path.join(work, "abv_queries")
+    os.makedirs(qdir)
+    pick = rng.choice(nvec, ABV_DB_QUERIES + ABV_PERTURBED, replace=False)
+    queries = [os.path.join(vdir, names[i]) for i in pick[:ABV_DB_QUERIES]]
+    for j, i in enumerate(pick[ABV_DB_QUERIES:]):
+        d, pct = vecs[i]
+        pct = pct * rng.lognormal(0.0, 0.3, pct.size)
+        queries.append(os.path.join(qdir, f"perturbed{j:03d}.abv"))
+        write_abv_file(queries[-1], d,
+                       (pct / pct.sum() * 100).astype(np.float32))
+    return queries, names, [int(i) for i in pick[:ABV_DB_QUERIES]]
+
+
+def phase_abv(work: str, seed: int, refdir: str) -> dict:
+    """The abv leg: index, sparse search on both routes (identical text),
+    dense search on the card (overlap sets, 2e-3 bound and self hits
+    against the sparse path) and on the CPU for ABV_CPU_QUERIES queries
+    (2e-3 of the card's)."""
+    import numpy as np
+    import torch
+    from metakssd_tpu_torch.ops import dense_abv
+    t = time.time()
+    queries, names, db_queries = make_abv_data(work, refdir, seed)
+    index_of = {n.encode(): i for i, n in enumerate(names)}
+    print(f"  data: {len(names)} vectors over {len(names)} species dims, "
+          f"{len(queries)} queries in {time.time() - t:.1f} s", flush=True)
+    _run_cli("composite -i", ["composite", "-r", refdir, "-i"])
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    _, _, dense = dense_abv._dense_db(refdir, dev)
+    torch.cuda.synchronize()
+    print(f"  dense DB on the card: {tuple(dense.mat.shape)} float32 "
+          f"({dense.mat.numel() * 4 / 2**30:.3f} GiB) in "
+          f"{time.time() - t:.3f} s", flush=True)
+    nq = len(queries)
+    cpu_q = queries[:ABV_CPU_QUERIES // 2] + queries[-ABV_CPU_QUERIES // 2:]
+    per256 = {}
+    for mode in (0, 1, 2):
+        txt = {}
+        for route in ("cuda", "cpu"):
+            txt[route] = os.path.join(work, f"abv_s{mode}_{route}.txt")
+            per256[f"s{mode} sparse {route}"] = _run_cli_to(
+                f"composite -s {mode} --device {route}",
+                ["composite", "-r", refdir, "-s", str(mode), *queries,
+                 "--device", route], txt[route]) * 256 / nq
+        with open(txt["cuda"], "rb") as a, open(txt["cpu"], "rb") as b:
+            _check(a.read() == b.read(), f"-s {mode}: sparse text differs "
+                                         "between the routes")
+        for route, qs in (("cuda", queries), ("cpu", cpu_q)):
+            txt[f"dense_{route}"] = os.path.join(
+                work, f"abv_s{mode}_dense_{route}.txt")
+            per256[f"s{mode} dense {route}"] = _run_cli_to(
+                f"composite -s {mode} --dense --device {route}",
+                ["composite", "-r", refdir, "-s", str(mode), "--dense", *qs,
+                 "--device", route], txt[f"dense_{route}"]) * 256 / len(qs)
+        sparse = _abv_blocks(txt["cuda"], index_of)
+        dense_b = _abv_blocks(txt["dense_cuda"], index_of)
+        _check(len(sparse) == len(dense_b) == nq, f"-s {mode}: block count")
+        worst, selfs, residues = 0.0, 0, []
+        for qi, ((hs, si, sv), (hd, di, dv)) in enumerate(zip(sparse,
+                                                              dense_b)):
+            _check(hs == hd, f"-s {mode}: headers differ")
+            os_, od = np.argsort(si), np.argsort(di)
+            _check(np.array_equal(si[os_], di[od]),
+                   f"-s {mode}: query {qi} overlap sets differ")
+            sv, dv = sv[os_], dv[od]
+            check = np.ones(sv.size, bool)
+            if mode == 2:
+                # a query equal to a DB vector: sparse 0, dense the sqrt of
+                # a rounding residue (ROADMAP.md section 3)
+                check = sv != 0.0
+                selfs += int((~check).sum())
+                residues += dv[~check].tolist()
+            if check.any():
+                worst = max(worst, float(np.abs(dv - sv)[check].max()))
+            if mode == 0 and qi < len(db_queries):
+                _check(di[0] == db_queries[qi],
+                       f"query {qi}: top cosine hit {names[di[0]]} is not "
+                       f"itself {names[db_queries[qi]]}")
+        _check(worst < DENSE_TOL, f"-s {mode}: dense vs sparse {worst}")
+        cpu_b = _abv_blocks(txt["dense_cpu"], index_of)
+        cuda_sub = dense_b[:ABV_CPU_QUERIES // 2] + \
+            dense_b[-ABV_CPU_QUERIES // 2:]
+        self_ids = db_queries[:ABV_CPU_QUERIES // 2] + \
+            [-1] * (ABV_CPU_QUERIES // 2)
+        cpu_worst = 0.0
+        for (_, ci, cv), (_, gi, gv), me in zip(cpu_b, cuda_sub, self_ids):
+            oc, og = np.argsort(ci), np.argsort(gi)
+            _check(np.array_equal(ci[oc], gi[og]),
+                   f"-s {mode}: dense cpu and cuda sample sets differ")
+            check = ci[oc] != me if mode == 2 else np.ones(ci.size, bool)
+            if check.any():
+                cpu_worst = max(cpu_worst, float(np.abs(
+                    cv[oc] - gv[og])[check].max()))
+        _check(cpu_worst < DENSE_TOL, f"-s {mode}: dense cpu vs cuda "
+                                      f"{cpu_worst}")
+        lines = sum(b[1].size for b in sparse)
+        extra = ""
+        if mode == 2:
+            r = np.asarray(residues)
+            extra = (f"; {selfs} self distances (sparse 0): dense NaN "
+                     f"{int(np.isnan(r).sum())}, max "
+                     f"{float(np.nanmax(r)) if np.isfinite(r).any() else 0}")
+        print(f"  -s {mode}: {lines} lines; sparse text identical between "
+              f"routes; dense overlap sets equal, max |dense - sparse| "
+              f"{worst:.3g}, dense cpu vs cuda {cpu_worst:.3g}"
+              f"{'; every DB query its own top hit' if mode == 0 else ''}"
+              f"{extra}", flush=True)
+    print(f"  peak device memory (abv leg) "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    print("  seconds per 256 queries: " + json.dumps(
+        {k: round(v, 4) for k, v in per256.items()}), flush=True)
+    return {"per256": per256}
+
+
+CUDA_TESTS = ["tests/test_torch_sketch_cuda.py",
+              "tests/test_torch_member_cuda.py",
+              "tests/test_torch_setops_cuda.py"]
+
+
+def phase_cuda_tests() -> None:
+    """The cuda-marked tests, in a child process; fails unless all pass."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p",
+         "no:cacheprovider", *CUDA_TESTS], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [proc.stderr[-500:]]
+    print(f"  pytest -m cuda: {tail[0]}", flush=True)
+    _check(proc.returncode == 0, "cuda tests failed:\n" + proc.stdout[-4000:]
+           + proc.stderr[-2000:])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of metakssd_tpu_torch on one NVIDIA GPU")
@@ -668,8 +1083,20 @@ def main(argv=None) -> int:
         t0 = time.time()
         qres = phase_search(work, args.seed)
         _phase("search", t0)
+
+        t0 = time.time()
+        setres = phase_set(work, args.seed, sres)
+        _phase("set", t0)
+
+        t0 = time.time()
+        phase_abv(work, args.seed, setres["markers"])
+        _phase("abv", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    t0 = time.time()
+    phase_cuda_tests()
+    _phase("cuda tests", t0)
 
     t = kres["times"]
     mt = mres["times"]
@@ -689,7 +1116,7 @@ def main(argv=None) -> int:
         {"name": "member (K3)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/member.cu",
          "replaces": "metakssd_tpu/ops/merge_device.py:29",
-         "launches": qres["launches"]["member"],
+         "launches": qres["launches"]["member"] + setres["launches"],
          "max_abs_err": mres["err"], "ms": mt["k3"],
          "plain_ms": mt["plain"]},
     ]}), flush=True)

@@ -1,6 +1,15 @@
-"""The ``--shard-db`` route of dist search, for one device: the port of
-``metakssd_tpu/parallel/mesh.py`` ``sharded_shared_counts`` with a db axis
-of 1, which takes ``_expansion_shared_counts`` (``mesh.py:268-358``).
+"""One-device counterparts of ``metakssd_tpu/parallel/mesh.py``.
+
+``device_union`` ports ``_union_step``/``device_union``
+(``mesh.py:541-631``): the distinct values of a u32 multiset, with exact
+counts when asked, by one sort on the device.  The JAX step pads with
+0xFFFFFFFF, masks it out on the device and puts it back on the host, and
+caps each device's counts at 2; here no value is a pad and every count is
+exact.
+
+``sharded_shared_counts`` is the ``--shard-db`` route of dist search: the
+port of ``sharded_shared_counts`` with a db axis of 1, which takes
+``_expansion_shared_counts`` (``mesh.py:268-358``).
 
 Query membership runs on the host against each component's distinct
 k-mers, as in the JAX step.  The device expands only the matched rows'
@@ -22,7 +31,29 @@ from metakssd_tpu.formats import mco as mco_fmt
 from metakssd_tpu.formats.codir import CoDir
 
 from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.ops.merge import u32_tensor
 from metakssd_tpu_torch.ops.profile_device import SubrowTable, _expand_tile
+
+# XOR with the sign bit maps the u32 order onto the int32 order, so the
+# keys sort as 4-byte ints (a plain int32 bit view puts keys >= 2^31 first).
+_U32_FLIP = -(1 << 31)
+
+
+def device_union(ids, device, return_counts: bool = False):
+    """``np.unique(ids)`` of a uint32 array, sorted on ``device``: the
+    distinct values ascending, and with ``return_counts`` their exact
+    occurrence counts (int64)."""
+    dev = resolve_device(device)
+    if np.size(ids) == 0:
+        empty = np.zeros(0, np.uint32)
+        return (empty, np.zeros(0, np.int64)) if return_counts else empty
+    x = u32_tensor(ids).to(dev) ^ _U32_FLIP
+    got = torch.unique(x, sorted=True, return_counts=return_counts)
+    vals, counts = got if return_counts else (got, None)
+    vals = (vals ^ _U32_FLIP).cpu().numpy().view(np.uint32)
+    if not return_counts:
+        return vals
+    return vals, counts.cpu().numpy().astype(np.int64)
 
 
 def _subrow_counts(sub: SubrowTable, subs: np.ndarray, weight: np.ndarray,

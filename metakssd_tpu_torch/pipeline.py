@@ -36,9 +36,7 @@ def check_supported(opts: SketchOptions) -> None:
     for flag, item, on in (("--byread", 1, opts.byread),
                            ("--ckpt", 2, opts.ckpt),
                            ("--mesh", 3, opts.mesh > 1),
-                           ("-P/--pipecmd", 4, bool(opts.pipecmd)),
-                           ("-u/--dedup", 9, opts.dedup),
-                           ("--keepcofile", 9, opts.keepcofile)):
+                           ("-P/--pipecmd", 4, bool(opts.pipecmd))):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported to metakssd_tpu_torch yet "
@@ -75,7 +73,8 @@ def sketch_file(path: str, shuf, opts: SketchOptions, device, tables=None
         return sketch.sketch_to_sets(codes, shuf, device, mode=mode,
                                      min_occ=opts.min_occ, tables=tables)
     codes = seqio.fasta_to_codes(path)
-    return sketch.sketch_to_sets(codes, shuf, device, mode="set",
+    return sketch.sketch_to_sets(codes, shuf, device,
+                                 mode="uniq" if opts.dedup else "set",
                                  min_occ=opts.min_occ, tables=tables)
 
 
@@ -122,6 +121,8 @@ def _batched_stage1(inputs: list[str], shuf, opts: SketchOptions, koc: bool,
         ab = None
         if koc:
             ab = np.minimum(counts, 0xFFFF).astype(np.uint16)
+        elif opts.dedup and not fmt_fastq:
+            uniq = uniq[counts == 1]
         elif fmt_fastq and opts.min_occ > 1:
             uniq = uniq[counts >= opts.min_occ]
         comp = (uniq % np.uint64(p.component_num)).astype(np.int64)
@@ -171,4 +172,14 @@ def run_stage1(inputs: list[str], shuf, out_dir: str,
                   all_ctx_ct=int(ctx_ct.sum()), ctx_ct=ctx_ct,
                   names=list(inputs))
     write_codir(out_dir, stat, per_genome)
+    if opts.keepcofile:
+        # the per-file intermediates "{i}.co.{c}" (+ ".a") of the
+        # reference's --keepcofile (command_dist.c:438-457)
+        for i, g in enumerate(per_genome):
+            for c, (ids, ab) in enumerate(g):
+                ids.astype(np.uint32).tofile(
+                    os.path.join(out_dir, f"{i}.co.{c}"))
+                if ab is not None:
+                    ab.astype(np.uint16).tofile(
+                        os.path.join(out_dir, f"{i}.co.{c}.a"))
     return stat

@@ -1,6 +1,6 @@
 """State carried from the JAX package's host structures onto the device.
 
-Three pieces of state cross over unchanged in content:
+Four pieces of state cross over unchanged in content:
 
 * the sketch filter tables, ``DimShuffle.device_tables()``'s
   ``(accept_tups, pfilters)`` (numpy uint32), which become int32 tensors
@@ -16,7 +16,10 @@ Three pieces of state cross over unchanged in content:
   ``mco_fmt.InvertedIndex.from_codir``'s ``(kmers, offsets, gids)``,
   whose sorted distinct k-mers become the dist search haystack (u32 bits
   in int32, as above); offsets and gids stay on the host, where the
-  postings are counted.
+  postings are counted;
+* an abv index, ``AbvIndex`` (``formats/abv.py``), whose postings become
+  the dense [nsamples, nspecies] float32 matrix of ``ops/dense_abv.py``,
+  equal to the JAX ``DenseAbv.from_index``'s.
 """
 
 from __future__ import annotations
@@ -69,3 +72,29 @@ def haystack_from_inverted(inv, device):
     identity mode: the value of a hit is its posting row."""
     from metakssd_tpu_torch.ops.merge import StaticHaystack
     return StaticHaystack(inv.kmers, None, device)
+
+
+def dense_abv_from_index(idx, nspecies: int, device):
+    """The port's ``DenseAbv`` of an abv index, built on ``device``: the
+    arrays of ``metakssd_tpu``'s ``DenseAbv.from_index(idx, nspecies)``.
+
+    ``idx`` is an ``AbvIndex`` (its postings are scattered into the dense
+    matrix on the device), or a JAX ``DenseAbv`` whose ``names``, ``mat``
+    and ``y_l2n`` are taken as numpy arrays."""
+    from metakssd_tpu_torch.ops.dense_abv import DenseAbv
+    dev = resolve_device(device)
+    if hasattr(idx, "mat"):
+        mat = np.array(idx.mat, np.float32)
+        y_l2n = np.array(idx.y_l2n, np.float32)
+        return DenseAbv(list(idx.names), torch.from_numpy(mat).to(dev),
+                        torch.from_numpy(y_l2n).to(dev))
+    counts = np.diff(np.concatenate([[0], idx.abmi]).astype(np.int64))
+    mat = torch.zeros((len(idx.names), nspecies), dtype=torch.float32,
+                      device=dev)
+    dims = torch.repeat_interleave(
+        torch.arange(nspecies, device=dev),
+        torch.from_numpy(counts).to(dev))
+    mat[torch.from_numpy(idx.abm_idx.astype(np.int64)).to(dev), dims] = \
+        torch.from_numpy(idx.abm_pct.astype(np.float32)).to(dev)
+    return DenseAbv(list(idx.names), mat, torch.from_numpy(
+        idx.y_l2n.astype(np.float32)).to(dev))

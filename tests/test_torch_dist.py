@@ -319,8 +319,20 @@ def test_shard_db_two_raises(search_setup, capsys):
 
 
 def test_level_number_raises(search_setup, capsys):
-    """-L takes a .shuf path: a level number names its ROADMAP item."""
+    """-L takes a level number as the JAX CLI does (a shuffle is made into
+    <outdir>/default.shuf); an -L that is neither a .shuf file nor a number
+    fails with a one-line error, in both CLIs."""
     tmp, _, gdir, _, _, _ = search_setup
-    assert cli.main(["dist", "-L", "2", "-o", str(tmp / "lvl"), "--device",
-                     "cpu", gdir]) == 1
-    assert "item 9" in capsys.readouterr().err
+    a, b = str(tmp / "jax_lvl"), str(tmp / "port_lvl")
+    assert jax_cli.main(["dist", "-L", "2", "--seed", "3", "-o", a,
+                         gdir]) == 0
+    assert cli.main(["dist", "-L", "2", "--seed", "3", "-o", b, "--device",
+                     "cpu", gdir]) == 0
+    _same_dir(a, b)
+    assert "default.shuf" in os.listdir(b)
+    capsys.readouterr()
+    for main in (jax_cli.main, cli.main):
+        assert main(["dist", "-L", "missing.shuf", "-o", str(tmp / "bad"),
+                     gdir]) == 1
+        err = capsys.readouterr().err
+        assert "invalid literal" in err and "Traceback" not in err

@@ -168,8 +168,10 @@ def test_cuda_without_gpu_raises():
 
 
 def test_slice_runs_without_jax(slice_setup):
-    """The port never imports jax: a fresh interpreter runs dist, profile
-    and dist -r (sketch search) on the CPU, then checks sys.modules."""
+    """The port never imports jax: a fresh interpreter runs dist, profile,
+    dist -r (sketch search), the MarkerDB chain (set -g/-q/-i/-u),
+    composite -b/-i/-s/--dense, shuffle and reverse on the CPU, then
+    checks sys.modules."""
     from metakssd_tpu import dist as jax_dist
     tmp, shufp, gdir, refdir, fq = slice_setup
     jax_composite.wait_staging()
@@ -178,16 +180,36 @@ def test_slice_runs_without_jax(slice_setup):
     ref_search = str(tmp / "jax_search_nojax")
     jax_dist.run_dist_search(refdir, refdir, ref_search, use_device=False)
     out = str(tmp / "nojax")
+    taxf = str(tmp / "nojax_tax.tsv")
+    with open(taxf, "w") as f:
+        f.writelines(f"{1 + i // 2}\tsp{i // 2}\n" for i in range(6))
     code = textwrap.dedent(f"""
         import sys
         from metakssd_tpu_torch import cli
-        assert cli.main(["dist", "-L", {shufp!r}, "-o", {out + "_db"!r},
-                         "--device", "cpu", {gdir!r}]) == 0
-        assert cli.main(["profile", "-L", {shufp!r}, "-r", {refdir!r},
-                         "-o", {out!r}, "--device", "cpu", {fq!r}]) == 0
-        assert cli.main(["dist", "-r", {out + "_db"!r}, "-o",
-                         {out + "_search"!r}, "--device", "cpu",
-                         {out + "_db"!r}]) == 0
+        def run(*argv):
+            assert cli.main(list(argv)) == 0, argv
+        cpu = ("--device", "cpu")
+        run("dist", "-L", {shufp!r}, "-o", {out + "_db"!r}, *cpu, {gdir!r})
+        run("profile", "-L", {shufp!r}, "-r", {refdir!r}, "-o", {out!r},
+            *cpu, {fq!r})
+        run("dist", "-r", {out + "_db"!r}, "-o", {out + "_search"!r}, *cpu,
+            {out + "_db"!r})
+        run("set", "-g", {taxf!r}, "-o", {out + "_pan"!r}, *cpu,
+            {out + "_db"!r})
+        run("set", "-q", "-o", {out + "_uq"!r}, *cpu, {out + "_pan"!r})
+        run("set", "-i", {out + "_uq"!r}, "-o", {out + "_mk"!r}, *cpu,
+            {out + "_pan"!r})
+        run("set", "-u", "-o", {out + "_u"!r}, *cpu, {out + "_db"!r})
+        run("composite", "-r", {out + "_mk"!r}, "-q", {out + "/qry.co"!r},
+            "-b", *cpu)
+        run("composite", "-r", {out + "_mk"!r}, "-i", *cpu)
+        for dense in ((), ("--dense",)):
+            run("composite", "-r", {out + "_mk"!r}, "-s", "1", *dense, *cpu,
+                "sample.fq.abv")
+        run("shuffle", "-k", "8", "-s", "5", "-l", "2", "--seed", "1",
+            "-o", {out + "_shuf"!r})
+        run("reverse", "-L", {shufp!r}, "-o", {out + "_rev"!r},
+            {out + "_mk"!r})
         assert "jax" not in sys.modules, "jax was imported"
         print("NOJAX-OK")
     """)
