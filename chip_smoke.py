@@ -62,12 +62,26 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    its measures (a query's L2 to itself excepted: ROADMAP.md section 3)
    and every DB query its own top cosine hit; ``--dense --device cpu`` on
    16 queries within 2e-3 of the card's;
-8. cuda tests: ``pytest -m cuda`` on the three cuda-marked test files.
+8. probes: the probe path P1-P4, the port's counterparts of the TPU
+   probes of ``benchmarks/`` (``metakssd_tpu_torch/probes/``), each at its
+   file's shapes (2^24 windows per dispatch) and timing method (16
+   XOR-varied dispatches, one readback, best of PROBE_REPS), with launch
+   counts zeroed before it: every probe kernel must run.  Then each
+   variant's CUDA kernel against its plain version on the same input,
+   element for element; the card's time of the path's 16 dispatches
+   replayed from a CUDA graph (the path's own time includes the host's
+   enqueueing), the plain version's, and for the sums one ``torch.sum``'s
+   (replayed alike);
+9. cuda tests: ``pytest -m cuda`` on the four cuda-marked test files.
 
 The line before the last is the kernels' JSON record, with the launch
-counts of the ``profile`` leg (K1, K2) and of the ``dist -r --device
-cuda`` and ``set --device cuda`` legs (K3); the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
+counts of the ``profile`` leg (K1, K2), of the ``dist -r --device cuda``
+and ``set --device cuda`` legs (K3) and of the probe path (P1-P4, one
+entry per variant), and each kernel's bound: the larger of its bytes over
+3.35 TB/s and its 32-bit operations over 67 T/s (the H100's float32 rate
+outside the tensor cores; the table of peaks has no int32 figure),
+counted from this run's inputs.  The last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  All data is made from --seed with numpy under
 ``.smoke_work/`` and removed at the end.
 """
@@ -113,6 +127,16 @@ ABV_DB_QUERIES = 192              # queries that are vectors of the DB ...
 ABV_PERTURBED = 64                # ... and perturbed copies of DB vectors
 ABV_CPU_QUERIES = 16              # dense queries run on the CPU too
 DENSE_TOL = 2e-3                  # dense vs sparse (tests/test_dense_abv.py)
+PROBE_REPS = 3                    # timed runs of each probe variant
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory rate
+ALU_OPS_PER_S = 67e12             # H100 SXM float32 rate outside tensor cores
+
+
+def _bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """(least ms for the work, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _phase(name: str, t0: float) -> None:
@@ -274,6 +298,8 @@ def phase_kernels(work: str, seed: int) -> dict:
               "and forced-capacity overflow ok", flush=True)
         if cfg == L3K11:
             res["times"] = t
+            res["shape"] = {"n_codes": n, "nwin": nwin, "TL": p.kmer_len,
+                            "n_accept": tabs.size, "survivors": m}
         del c, codes
         torch.cuda.empty_cache()
     return res
@@ -345,7 +371,11 @@ def phase_member(seed: int) -> dict:
             _check(hits >= needles.size // 2, "K3 4M x 1M: too few hits")
     h, v, nd = timed
     one_query = nd[::nd.numel() // QUERY_KMERS][:QUERY_KMERS].contiguous()
-    t = {}
+    # the library yardstick: torch.searchsorted of the same keys, as int64
+    # (the int32 bit view misorders keys >= 2^31); the copies are set-up
+    h64, nd64 = h.long() & ALL_ONES, nd.long() & ALL_ONES
+    t = {"library": _time_ms(lambda: torch.searchsorted(h64, nd64), 20)}
+    del h64, nd64
     for label, x in (("", nd), ("query_", one_query)):
         for mode, vv in (("", None), ("values_", v)):
             t[f"{label}{mode}k3"] = _time_ms(
@@ -354,9 +384,11 @@ def phase_member(seed: int) -> dict:
                 lambda: merge.member_plain(h, vv, x), 5)
     for name, ms in t.items():
         n = one_query.numel() if name.startswith("query_") else nd.numel()
+        name = "torch.searchsorted" if name == "library" else name
         print(f"  K3 {name:20s} {ms:10.4f} ms  {n / ms / 1e3:10.2f} "
               f"Mneedles/s  ({h.numel()} x {n})", flush=True)
-    return {"err": err, "times": t}
+    return {"err": err, "times": t, "shape": {"hay": h.numel(),
+                                              "needles": nd.numel()}}
 
 
 def _write_fasta(path: str, name: str, seq_ascii) -> None:
@@ -1021,7 +1053,77 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
 
 CUDA_TESTS = ["tests/test_torch_sketch_cuda.py",
               "tests/test_torch_member_cuda.py",
-              "tests/test_torch_setops_cuda.py"]
+              "tests/test_torch_setops_cuda.py",
+              "tests/test_torch_probes_cuda.py"]
+PROBE_KERNELS = ("probe_floor", "probe_winmath", "probe_gather",
+                 "probe_search")
+
+
+def phase_probes() -> list:
+    """The probe path on the card (launch counts zeroed before it), then
+    every variant's kernel against its plain version; one record per
+    variant for the kernels' JSON line."""
+    import torch
+    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.probes import (probe_floor_chunk,
+                                           probe_floor_noread,
+                                           probe_kernel_cost, probe_r4)
+    from metakssd_tpu_torch.probes._common import graph_ms, vary
+
+    mods = (("P1", probe_kernel_cost), ("P2", probe_r4),
+            ("P3", probe_floor_chunk), ("P4", probe_floor_noread))
+    sketch_cuda.reset_launches()
+    runs = [(pid, rec) for pid, mod in mods
+            for rec in mod.run(reps=PROBE_REPS)]
+    launches = dict(sketch_cuda.LAUNCHES)
+    print(f"  probe path launches {launches}", flush=True)
+    for kern in PROBE_KERNELS:
+        _check(launches[kern] > 0, f"{kern} never launched: {launches}")
+        _check(sum(r["launches"] for _, r in runs if r["kernel"] == kern)
+               == launches[kern], f"{kern}: launches not all attributed")
+
+    out = []
+    for pid, r in runs:
+        v = r["variant"]
+        if v.plain is None:          # K1/K2 on the probe's windows
+            ms = graph_ms(v.run, vary(v.tiles), 5)
+            print(f"  {pid} {v.name:30s} {ms:8.4f} ms on the card "
+                  f"({r['ms']:.4f} per path dispatch)", flush=True)
+            continue
+        got, want = v.run(v.tiles), v.plain(v.tiles)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        _check(torch.equal(got, want), f"{pid} {v.name}: kernel != plain")
+        plain_ms = _time_ms(lambda: v.plain(v.tiles), 2)
+        # the card's time per dispatch: the path's K dispatches replayed
+        # from a CUDA graph (the path's own time includes the host's)
+        inputs = vary(v.tiles)
+        ms = graph_ms(v.run, inputs, 5)
+        lib_ms = None
+        if v.library is not None:
+            try:
+                lib_ms = graph_ms(v.library, inputs, 5)
+            except (RuntimeError, TypeError) as e:
+                print(f"  {pid} {v.name}: no torch.sum for "
+                      f"{v.tiles.dtype} here ({e})", flush=True)
+        del inputs
+        bound_ms, bound_by = _bound(v.nbytes, v.ops)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"  {pid} {v.name:30s} {ms:8.4f} ms on the card "
+              f"({r['ms']:.4f} per path dispatch)  plain {plain_ms:9.4f}  "
+              f"torch.sum {lib}  bound {bound_ms:.4f} ({bound_by}: "
+              f"{v.nbytes} B, {v.ops} ops)  launches {r['launches']}  "
+              "== plain", flush=True)
+        out.append({"name": f"{pid} {v.kernel}: {v.name}", "route": "cuda",
+                    "source": "metakssd_tpu_torch/csrc/probe.cu",
+                    "replaces": v.replaces, "launches": r["launches"],
+                    "max_abs_err": err, "ms": ms, "path_ms": r["ms"],
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms})
+        del got, want
+    del runs
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_cuda_tests() -> None:
@@ -1049,6 +1151,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from metakssd_tpu_torch.ops import _build, sketch_cuda
+    from metakssd_tpu_torch.probes._common import search_ops
 
     t0 = time.time()
     card = subprocess.run(
@@ -1091,6 +1194,10 @@ def main(argv=None) -> int:
         t0 = time.time()
         phase_abv(work, args.seed, setres["markers"])
         _phase("abv", t0)
+
+        t0 = time.time()
+        probes = phase_probes()
+        _phase("probes", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1100,25 +1207,44 @@ def main(argv=None) -> int:
 
     t = kres["times"]
     mt = mres["times"]
+    ks = kres["shape"]
+    # K1/K2 at the 64M-window L3K11 batch: the codes and both tables read
+    # once; K1 writes its survivors' drtuples and the counter, K2 a
+    # drtuple and a keep flag per window.  Operations: the window math
+    # and a lower bound of ceil(log2 n) steps per window.
+    win_ops = ks["nwin"] * search_ops((ks["n_accept"] - 1).bit_length())
+    tables = 8 * ks["n_accept"]
+    k1_bound = _bound(ks["n_codes"] + tables + 4 * ks["survivors"] + 8,
+                      win_ops)
+    k2_bound = _bound(ks["n_codes"] + tables + 8 * ks["nwin"], win_ops)
+    # K3 at 4.19M x 1M, identity mode: haystack and needles read once, a
+    # member flag and a value written per needle; a lower bound each
+    ms_ = mres["shape"]
+    k3_bound = _bound(4 * ms_["hay"] + 12 * ms_["needles"], ms_["needles"]
+                      * (4 * (ms_["hay"] - 1).bit_length() + 4))
     print(json.dumps({"kernels": [
         {"name": "sketch_compact (K1)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/sketch.cu",
          "replaces": "metakssd_tpu/ops/sketch_pallas.py:323",
          "launches": sres["launches"]["sketch_compact"],
          "max_abs_err": kres["k1_err"], "ms": t["k1"],
-         "plain_ms": t["k1_plain"]},
+         "plain_ms": t["k1_plain"], "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "sketch_full (K2)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/sketch.cu",
          "replaces": "metakssd_tpu/ops/sketch_pallas.py:298",
          "launches": sres["launches"]["sketch_full"],
          "max_abs_err": kres["k2_err"], "ms": t["k2"],
-         "plain_ms": t["k2_plain"]},
+         "plain_ms": t["k2_plain"], "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
         {"name": "member (K3)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/member.cu",
          "replaces": "metakssd_tpu/ops/merge_device.py:29",
          "launches": qres["launches"]["member"] + setres["launches"],
          "max_abs_err": mres["err"], "ms": mt["k3"],
-         "plain_ms": mt["plain"]},
+         "plain_ms": mt["plain"], "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": mt["library"]},
+        *probes,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

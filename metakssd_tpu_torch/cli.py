@@ -19,10 +19,10 @@ Flags follow ``metakssd_tpu.cli`` (and so the reference wrappers,
 command_dist_wrapper.c:32-96, command_set.c:24-68,
 command_composite.c:32-63).  ``--device`` is ``cuda`` (default) or
 ``cpu``; ``cpu`` runs the plain PyTorch version of every kernel.  The
-verbs that do host work only in the JAX package too (``shuffle``,
-``reverse``, ``postprocess``, ``primer``) take no ``--device`` and run the
-JAX package's own jax-free handlers.  Options whose paths are not ported
-yet raise NotImplementedError naming their ROADMAP.md item.
+verbs that do host work only (``shuffle``, ``reverse``, ``postprocess``,
+``primer``) take no ``--device``; their handlers are copied from
+``metakssd_tpu.cli``.  Options whose paths are not ported yet raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,19 +33,14 @@ import os
 import shutil
 import sys
 
-from metakssd_tpu.cli import (_cmd_pp_abvmeta, _cmd_pp_cami,
-                              _cmd_pp_csv_subset, _cmd_pp_krona,
-                              _cmd_pp_ordcsv_subset, _cmd_pp_poisson,
-                              _cmd_primer, _cmd_reverse, _cmd_shuffle)
-
 
 def _shuf(args):
     """The ``-L`` shuffle: a ``.shuf`` path, or one generated for a level
     number (2 without ``-L``) into ``<outdir>/default.shuf``, with
     ``--component_sz`` applied, as ``metakssd_tpu.cli`` does."""
     import dataclasses
-    from metakssd_tpu.formats.shuf import DimShuffle, read_shuf
-    from metakssd_tpu.pipeline import resolve_shuffle
+    from metakssd_tpu_torch.formats.shuf import DimShuffle, read_shuf
+    from metakssd_tpu_torch.pipeline import resolve_shuffle
     if args.DimRdcLevel and os.path.isfile(args.DimRdcLevel):
         shuf = read_shuf(args.DimRdcLevel)
     else:
@@ -58,15 +53,33 @@ def _shuf(args):
     return shuf
 
 
+def _cmd_shuffle(args) -> int:
+    from metakssd_tpu_torch.params import SketchParams
+    from metakssd_tpu_torch.formats.shuf import make_shuf, write_shuf
+    if args.usedefault:
+        # reference command_shuffle.c:31,94: force the prokaryote
+        # defaults (k=8, s=5, l=2) regardless of other flags
+        print("use default values for all options")
+        args.halfKmerLen, args.halfSubstrLen, args.level = 8, 5, 2
+    p = SketchParams(k=args.halfKmerLen, subk=args.halfSubstrLen,
+                     drlevel=args.level)
+    p.validate()
+    shuf = make_shuf(p, seed=args.seed)
+    write_shuf(args.outfile + ".shuf", shuf)
+    print(f"kssd shuffle: shuf_id={shuf.params.shuf_id}, k = {p.k}, "
+          f"halfCtxLen = {p.subk}, level= {p.drlevel}")
+    return 0
+
+
 def _cmd_dist(args) -> int:
     """The branches of ``metakssd_tpu.cli._cmd_dist`` (cli.py:42-139):
     stage I, stage II, stage I + II, search, sketch-then-search and the
     combination of several sketch dirs."""
-    from metakssd_tpu.formats import mco as mco_fmt
-    from metakssd_tpu.formats.costat import CO_DSTAT, MCO_DSTAT
-    from metakssd_tpu.io import native as native_io
-    from metakssd_tpu.pipeline import SketchOptions, organize_infiles
     from metakssd_tpu_torch import dist, pipeline, setops
+    from metakssd_tpu_torch.formats import mco as mco_fmt
+    from metakssd_tpu_torch.formats.costat import CO_DSTAT, MCO_DSTAT
+    from metakssd_tpu_torch.io import native as native_io
+    from metakssd_tpu_torch.pipeline import SketchOptions, organize_infiles
 
     native_io.set_threads(args.threadN)
     opts = SketchOptions(
@@ -135,8 +148,8 @@ def _cmd_dist(args) -> int:
 
 def _cmd_set(args) -> int:
     """``metakssd_tpu.cli._cmd_set`` (cli.py:142-165) on ``--device``."""
-    from metakssd_tpu.io import native as native_io
     from metakssd_tpu_torch import setops
+    from metakssd_tpu_torch.io import native as native_io
     native_io.set_threads(args.threads)
     dev = args.device
     if args.union:
@@ -165,10 +178,9 @@ def _cmd_set(args) -> int:
 def _cmd_composite(args) -> int:
     """``metakssd_tpu.cli._cmd_composite`` (cli.py:168-192): profiling
     and ``--dense`` search on ``--device``; the abv index, the sparse
-    search and ``-d`` are the JAX package's host code."""
-    from metakssd_tpu import composite as host_composite
-    from metakssd_tpu.io import native as native_io
+    search and ``-d`` are host work."""
     from metakssd_tpu_torch import composite
+    from metakssd_tpu_torch.io import native as native_io
     from metakssd_tpu_torch.ops import dense_abv
     native_io.set_threads(args.threads)
     if args.ref and args.query:
@@ -177,17 +189,17 @@ def _cmd_composite(args) -> int:
             args.ref, args.query, outdir=args.outfile, binvec=args.binVec,
             shard_db=args.shard_db, device=args.device, **kw)
     elif args.ref and args.idxbv:
-        host_composite.index_abv(args.ref)
+        composite.index_abv(args.ref)
     elif args.ref and args.search is not None:
         if args.dense:
             dense_abv.abv_search_dense(args.ref, args.rest or [],
                                        mode=args.search, device=args.device)
         else:
-            host_composite.abv_search(args.ref, args.rest or [],
-                                      mode=args.search)
+            composite.abv_search(args.ref, args.rest or [],
+                                 mode=args.search)
     elif args.readabv:
         for f in args.rest or []:
-            host_composite.read_abv(f)
+            composite.read_abv(f)
     else:
         print("Usage: metakssd composite -r <ref> < mode: -q | -i | -s >")
         return 1
@@ -196,9 +208,9 @@ def _cmd_composite(args) -> int:
 
 def _cmd_profile(args) -> int:
     """fastq -> sketch -A -> composite -> poisson as one timed flow."""
-    from metakssd_tpu.io import native as native_io
-    from metakssd_tpu.pipeline import SketchOptions
     from metakssd_tpu_torch import profile_e2e
+    from metakssd_tpu_torch.io import native as native_io
+    from metakssd_tpu_torch.pipeline import SketchOptions
 
     native_io.set_threads(args.threadN)
     opts = SketchOptions(
@@ -210,6 +222,13 @@ def _cmd_profile(args) -> int:
         cami=tuple(args.cami) if args.cami else None,
         min_km_s=args.min_km_s, shard_db=args.shard_db, device=args.device)
     print(json.dumps(rep), file=sys.stderr)
+    return 0
+
+
+def _cmd_reverse(args) -> int:
+    from metakssd_tpu_torch import reverse
+    reverse.co_reverse2kmer(args.codir, args.shufFile, args.outdir,
+                            byreads=args.byreads)
     return 0
 
 
@@ -380,9 +399,88 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _cmd_primer(args) -> int:
+    """Hidden dev utility: largest prime below each power of two
+    (reference global_wrapper.c:95-97, global_basic.c:424), via
+    deterministic Miller-Rabin for 64-bit range."""
+    def is_prime(n: int) -> bool:
+        if n < 2:
+            return False
+        for p in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
+            if n % p == 0:
+                return n == p
+        d, r = n - 1, 0
+        while d % 2 == 0:
+            d //= 2
+            r += 1
+        for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
+            x = pow(a, d, n)
+            if x in (1, n - 1):
+                continue
+            for _ in range(r - 1):
+                x = x * x % n
+                if x == n - 1:
+                    break
+            else:
+                return False
+        return True
+
+    for w in range(8, 52):
+        n = (1 << w) - 1
+        while not is_prime(n):
+            n -= 1
+        print(n)
+    return 0
+
+
+def _cmd_pp_poisson(args) -> int:
+    from metakssd_tpu_torch.postprocess import poisson
+    with open(args.composite_tsv) as f:
+        poisson.poisson_abundance(f, shkm_thr=args.shkm_thr)
+    return 0
+
+
+def _cmd_pp_cami(args) -> int:
+    from metakssd_tpu_torch.postprocess import cami
+    n2r, n2p, n2n = cami.load_nodes(args.nodes_tsv)
+    with open(args.composite_tsv) as f:
+        cami.composite_to_cami_profile(
+            f, cami.load_psid_map(args.psid2ncbi_tsv), n2r, n2p, n2n,
+            shkm_thr=args.shkm_thr, low_thr=args.low_thr)
+    return 0
+
+
+def _cmd_pp_krona(args) -> int:
+    from metakssd_tpu_torch.postprocess import cami
+    with open(args.psid_species_tsv) as a, open(args.gtdb_taxonomy_tsv) as b:
+        cami.krona_taxonomy(a, list(b))
+    return 0
+
+
+def _cmd_pp_abvmeta(args) -> int:
+    from metakssd_tpu_torch.postprocess import cami
+    with open(args.abv_out_tsv) as a, open(args.metadata_csv) as b:
+        cami.abv_match_metadata(a, b)
+    return 0
+
+
+def _cmd_pp_csv_subset(args) -> int:
+    from metakssd_tpu_torch.postprocess import csvutil
+    with open(args.csv) as c, open(args.selection_tsv) as s:
+        csvutil.csv_table_subset(c, s)
+    return 0
+
+
+def _cmd_pp_ordcsv_subset(args) -> int:
+    from metakssd_tpu_torch.postprocess import csvutil
+    with open(args.csv) as c, open(args.selection_tsv) as s:
+        csvutil.ordcsv_table_subset(c, s)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
-    from metakssd_tpu.composite import wait_staging
-    from metakssd_tpu.utils import TIMER
+    from metakssd_tpu_torch.composite import wait_staging
+    from metakssd_tpu_torch.utils import TIMER
     args = build_parser().parse_args(argv)
     TIMER.reset()
     TIMER.meta["command"] = args.command

@@ -40,6 +40,17 @@ _SIGNATURES = {
     # hay, nh, values (NULL = identity), needles, nn, out_member,
     # out_value, stream
     "mkssd_member": [_P, _LL, _P, _P, _LL, _P, _P, _P],
+    # tiles, dtype, nb, tile_rows, row0, row1, op, out, stream
+    "mkssd_probe_floor": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # tiles, dtype, nb, tile_rows, nrows, TL, out, stream
+    "mkssd_probe_winmath": [_P, _I, _I, _I, _I, _I, _P, _P],
+    # tiles, nb, tile_rows, nrows, table, table_dtype, table_size, mult,
+    # ng, out, stream
+    "mkssd_probe_gather": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P],
+    # tiles, nb, tile_rows, nrows, k, subk, drlevel, accept, n_accept,
+    # lev, sig (NULL = exact form), sig_words, out, stream
+    "mkssd_probe_search": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I,
+                           _P, _P],
 }
 
 _lib = None

@@ -26,10 +26,10 @@ import sys
 import numpy as np
 import torch
 
-from metakssd_tpu.formats.abv import BINVEC_DIRNAME, AbvIndex, read_abv_file
-from metakssd_tpu.io import native as native_io
-
 from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.formats.abv import (BINVEC_DIRNAME, AbvIndex,
+                                            read_abv_file)
+from metakssd_tpu_torch.io import native as native_io
 from metakssd_tpu_torch.state import dense_abv_from_index
 
 L1_CHUNK = 512                # species per L1 step (``_dense_l1``'s chunk)

@@ -5,18 +5,16 @@ Every config with k - drlevel <= 8 (32-bit drtuples) and an accept table
 that fits the kernels' shared memory runs the K1/K2 chunk loop
 (``sketch_cuda.sketch_windows``): the CUDA kernels on a CUDA device,
 their plain PyTorch versions on the CPU.  Wider configs, or larger
-tables, go through the shared numpy model ``metakssd_tpu.ops.golden``, as
-the JAX package does for k - drlevel > 8 (``sketch_xla.py:312-318``).
+tables, go through the numpy model ``ops/golden.py`` (copied from
+``metakssd_tpu/ops/golden.py``), as the JAX package does for k - drlevel > 8 (``sketch_xla.py:312-318``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from metakssd_tpu.ops import golden
-from metakssd_tpu.ops.golden import sets_from_drtuples
-
-from metakssd_tpu_torch.ops import sketch_cuda
+from metakssd_tpu_torch.ops import golden, sketch_cuda
+from metakssd_tpu_torch.ops.golden import sets_from_drtuples
 from metakssd_tpu_torch.state import AcceptTables, accept_tables
 
 # Largest accept table the kernels stage in shared memory: 2 x 64 KiB

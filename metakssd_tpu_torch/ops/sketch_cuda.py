@@ -29,10 +29,13 @@ import torch
 
 from metakssd_tpu_torch.state import AcceptTables
 
-# Launches of each kernel of csrc/ (not of its plain version): K1, K2 and
-# K3 (``member``, counted by ops/merge.py).  Reset with reset_launches();
-# chip_smoke.py reads them around each leg of the main path.
-LAUNCHES = {"sketch_compact": 0, "sketch_full": 0, "member": 0}
+# Launches of each kernel of csrc/ (not of its plain version): K1, K2, K3
+# (``member``, counted by ops/merge.py) and the probe kernels (``probe_*``,
+# counted by ops/probe.py).  Reset with reset_launches(); chip_smoke.py
+# reads them around each leg of the main path.
+LAUNCHES = {"sketch_compact": 0, "sketch_full": 0, "member": 0,
+            "probe_floor": 0, "probe_winmath": 0, "probe_gather": 0,
+            "probe_search": 0}
 
 CHUNK_WINDOWS = 1 << 26        # windows per device dispatch (64M)
 DROPPED = 0xFFFFFFFF

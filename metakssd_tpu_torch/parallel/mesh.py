@@ -27,10 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metakssd_tpu.formats import mco as mco_fmt
-from metakssd_tpu.formats.codir import CoDir
-
 from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.formats import mco as mco_fmt
+from metakssd_tpu_torch.formats.codir import CoDir
 from metakssd_tpu_torch.ops.merge import u32_tensor
 from metakssd_tpu_torch.ops.profile_device import SubrowTable, _expand_tile
 

@@ -1,10 +1,11 @@
 """Stage I on a device: sequence files -> combined sketch directory.
 
 The port of ``metakssd_tpu/pipeline.py`` (``run_stage1``, ``sketch_file``,
-the streaming fastq path and the batched multi-file path).  Parsing, the
-unique/count tail and the on-disk format are the JAX package's shared,
-jax-free code; the window sketch runs through ``ops/sketch.py`` on the
-named device.  The output directory is byte-identical to
+the streaming fastq path and the batched multi-file path), with its
+options, input listing and ``-L`` handling.  Parsing, the unique/count
+tail and the on-disk format are the port's copies of the JAX package's
+host code; the window sketch runs through ``ops/sketch.py`` on the named
+device.  The output directory is byte-identical to
 ``metakssd_tpu.pipeline.run_stage1``'s for the same inputs.
 """
 
@@ -15,19 +16,71 @@ import os
 
 import numpy as np
 
-from metakssd_tpu.formats.codir import write_codir
-from metakssd_tpu.formats.costat import CoStat
-from metakssd_tpu.io import native, seqio
-from metakssd_tpu.ops.golden import sets_from_drtuples
-from metakssd_tpu.pipeline import SketchOptions
-from metakssd_tpu.utils import TIMER
-
 from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.formats.codir import write_codir
+from metakssd_tpu_torch.formats.costat import CoStat
+from metakssd_tpu_torch.formats.shuf import (DimShuffle, make_shuf,
+                                             read_shuf, write_shuf)
+from metakssd_tpu_torch.io import native, seqio
 from metakssd_tpu_torch.ops import sketch
+from metakssd_tpu_torch.ops.golden import sets_from_drtuples
+from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.state import accept_tables
+from metakssd_tpu_torch.utils import TIMER
+
+ACCEPT_EXTS = seqio.FASTA_EXTS + seqio.FASTQ_EXTS
 
 # Bases per streamed fastq batch (reads never split across batches).
 STREAM_BATCH_BASES = 64 << 20
+
+
+@dataclasses.dataclass
+class SketchOptions:
+    """Mirrors the reference dist options (command_dist_wrapper.c:68-96)."""
+    abundance: bool = False    # -A  (koc mode, u16 counts)
+    dedup: bool = False        # -u  (keep multiplicity-1 k-mers only)
+    min_occ: int = 1           # -n  (fastq least k-mer occurrence)
+    min_qual: int = 0          # -Q  (fastq base-quality filter)
+    byread: bool = False       # --byread (per-read sketching)
+    pipecmd: str = ""          # -P  (decompress/filter command -> fastq)
+    threads: int = 0           # -p  (host parse pool; 0 = cpu count)
+    keepcofile: bool = False   # --keepcofile (per-file .co intermediates)
+    mesh: int = 0              # --mesh (data-parallel sketch over N devices)
+    ckpt: bool = False         # --ckpt (per-file/per-batch stage-I resume)
+
+
+def organize_infiles(args: list[str], list_file: str | None = None) -> list[str]:
+    """Expand dirs / list files / file args into an ordered list of inputs
+    (reference organize_infile_frm_arg / organize_infile_list,
+    global_basic.c:169-325)."""
+    paths: list[str] = []
+    if list_file:
+        with open(list_file) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    paths.append(line)
+    for a in args or []:
+        if os.path.isdir(a):
+            for name in sorted(os.listdir(a)):
+                base = name[:-3] if name.endswith(".gz") else name
+                if os.path.splitext(base)[1].lower() in ACCEPT_EXTS:
+                    paths.append(os.path.join(a, name))
+        else:
+            paths.append(a)
+    return paths
+
+
+def resolve_shuffle(dr_file: str | None, k: int, drlevel: int,
+                    out_dir: str, seed: int | None = None) -> DimShuffle:
+    """-L handling: a .shuf path loads it; otherwise generate one into
+    out_dir/default.shuf (reference get_dim_shuffle, command_dist.c:256-284)."""
+    if dr_file and os.path.isfile(dr_file):
+        return read_shuf(dr_file)
+    shuf = make_shuf(SketchParams.for_drlevel(k, drlevel), seed=seed)
+    os.makedirs(out_dir, exist_ok=True)
+    write_shuf(os.path.join(out_dir, "default.shuf"), shuf)
+    return shuf
 
 
 def check_supported(opts: SketchOptions) -> None:

@@ -3,8 +3,8 @@ sketch -> MarkerDB profile -> Poisson abundance.
 
 The port of ``metakssd_tpu/profile_e2e.py``: the same stages, artifacts
 and report dict.  Stage I and the profile reduction run on ``device``;
-Poisson normalisation (and the optional CAMI conversion) is the JAX
-package's shared host code.
+Poisson normalisation (and the optional CAMI conversion) is host code,
+copied from the JAX package (``postprocess/``).
 """
 
 from __future__ import annotations
@@ -13,12 +13,11 @@ import dataclasses
 import os
 import time
 
-from metakssd_tpu.formats.shuf import read_shuf
-from metakssd_tpu.pipeline import SketchOptions
-from metakssd_tpu.postprocess import poisson
-from metakssd_tpu.utils import TIMER
-
 from metakssd_tpu_torch import composite, pipeline
+from metakssd_tpu_torch.formats.shuf import read_shuf
+from metakssd_tpu_torch.pipeline import SketchOptions
+from metakssd_tpu_torch.postprocess import poisson
+from metakssd_tpu_torch.utils import TIMER
 
 
 def profile_fastq(fastqs: list[str], markerdb: str, shuf, outdir: str,
@@ -62,7 +61,7 @@ def profile_fastq(fastqs: list[str], markerdb: str, shuf, outdir: str,
         with open(tsv_path) as f, open(abund_path, "w") as g:
             poisson.poisson_abundance(f, shkm_thr=shkm_thr, out=g)
     if cami is not None:
-        from metakssd_tpu.postprocess import cami as cami_pp
+        from metakssd_tpu_torch.postprocess import cami as cami_pp
         cami_path = os.path.join(outdir, "cami.profile")
         with TIMER.stage("e2e.cami"):
             psid_map = cami_pp.load_psid_map(cami[0])

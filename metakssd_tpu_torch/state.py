@@ -1,4 +1,4 @@
-"""State carried from the JAX package's host structures onto the device.
+"""State carried from the host structures onto the device.
 
 Four pieces of state cross over unchanged in content:
 
@@ -8,10 +8,9 @@ Four pieces of state cross over unchanged in content:
   below 2^28 and pfilters below 2^28 on every supported config, so no
   value changes sign;
 * the staged MarkerDB, the per-component ``(rk, starts, gid_sorted)``
-  arrays that ``metakssd_tpu.composite.stage_markerdb`` builds or mmaps
-  from its ``.mkssd_stage/c{c}.{rk,st,gs}.npy`` sidecars
-  (``composite.py:157-222``), which become the port's device profile
-  index;
+  arrays that ``composite.stage_markerdb`` builds or mmaps from its
+  ``.mkssd_stage/c{c}.{rk,st,gs}.npy`` sidecars, which become the port's
+  device profile index;
 * a sketch dir's per-component inverted index,
   ``mco_fmt.InvertedIndex.from_codir``'s ``(kmers, offsets, gids)``,
   whose sorted distinct k-mers become the dist search haystack (u32 bits

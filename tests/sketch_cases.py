@@ -1,13 +1,13 @@
 """Inputs and comparisons shared by the tests of the port's sketch
-kernels.  Imports no jax, so the CUDA-marked tests can run on a GPU
-machine that has none."""
+kernels.  Imports neither jax nor the JAX package, so the CUDA-marked
+tests can run on a GPU machine that has neither."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from metakssd_tpu.formats.shuf import DimShuffle, make_shuf
-from metakssd_tpu.params import SketchParams
+from metakssd_tpu_torch.formats.shuf import DimShuffle, make_shuf
+from metakssd_tpu_torch.params import SketchParams
 
 # (k, subk, drlevel); (5, 5, 2) has outctx = 0 (no outer context)
 CONFIGS = [(8, 5, 2), (11, 6, 3), (7, 5, 3), (6, 4, 2), (5, 5, 2)]

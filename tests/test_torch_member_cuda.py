@@ -3,7 +3,8 @@ plain PyTorch version, and the port's sketch search on the card against
 the same search on the CPU.
 
 Every test here carries the ``cuda`` marker and skips where there is no
-CUDA device.  The module imports no jax, so on a GPU machine without it:
+CUDA device.  The module imports neither jax nor the JAX package, so on a
+GPU machine:
 
     python -m pytest -m cuda tests/test_torch_member_cuda.py
 """
@@ -14,11 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from metakssd_tpu.formats.shuf import make_shuf
-from metakssd_tpu.params import SketchParams
-
 from metakssd_tpu_torch import dist, pipeline
+from metakssd_tpu_torch.formats.shuf import make_shuf
 from metakssd_tpu_torch.ops import merge, sketch_cuda
+from metakssd_tpu_torch.params import SketchParams
 
 pytestmark = pytest.mark.cuda
 

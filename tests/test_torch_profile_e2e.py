@@ -168,13 +168,16 @@ def test_cuda_without_gpu_raises():
 
 
 def test_slice_runs_without_jax(slice_setup):
-    """The port never imports jax: a fresh interpreter runs dist, profile,
-    dist -r (sketch search), the MarkerDB chain (set -g/-q/-i/-u),
-    composite -b/-i/-s/--dense, shuffle and reverse on the CPU, then
-    checks sys.modules."""
+    """The port never imports jax nor the JAX package: a fresh
+    interpreter runs dist, profile, dist -r (sketch search), the MarkerDB
+    chain (set -g/-q/-i/-u), composite -b/-i/-s/--dense, shuffle and
+    reverse on the CPU, then checks sys.modules."""
     from metakssd_tpu import dist as jax_dist
+    from metakssd_tpu_torch import composite
     tmp, shufp, gdir, refdir, fq = slice_setup
+    # both packages may have staged this MarkerDB in the background
     jax_composite.wait_staging()
+    composite.wait_staging()
     ref = str(tmp / "jax_prof_nojax")
     jax_profile_e2e.profile_fastq([fq], refdir, shufp, ref)
     ref_search = str(tmp / "jax_search_nojax")
@@ -211,6 +214,8 @@ def test_slice_runs_without_jax(slice_setup):
         run("reverse", "-L", {shufp!r}, "-o", {out + "_rev"!r},
             {out + "_mk"!r})
         assert "jax" not in sys.modules, "jax was imported"
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] == "metakssd_tpu"], "JAX package"
         print("NOJAX-OK")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -2,7 +2,8 @@
 the CPU.
 
 Every test here carries the ``cuda`` marker and skips where there is no
-CUDA device.  The module imports no jax, so on a GPU machine without it:
+CUDA device.  The module imports neither jax nor the JAX package, so on a
+GPU machine:
 
     python -m pytest -m cuda tests/test_torch_setops_cuda.py
 """
@@ -13,14 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from metakssd_tpu.composite import index_abv
-from metakssd_tpu.formats.abv import AbvIndex, read_abv_file, write_abv_file
-from metakssd_tpu.formats.costat import CoStat
-from metakssd_tpu.formats.shuf import make_shuf, write_shuf
-from metakssd_tpu.params import SketchParams
-
 from metakssd_tpu_torch import cli
+from metakssd_tpu_torch.composite import index_abv
+from metakssd_tpu_torch.formats.abv import (AbvIndex, read_abv_file,
+                                            write_abv_file)
+from metakssd_tpu_torch.formats.costat import CoStat
+from metakssd_tpu_torch.formats.shuf import make_shuf, write_shuf
 from metakssd_tpu_torch.ops import dense_abv, sketch_cuda
+from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.parallel import mesh
 from metakssd_tpu_torch.state import dense_abv_from_index
 

@@ -2,7 +2,8 @@
 their plain PyTorch versions and the numpy model ``golden``, on a GPU.
 
 Every test here carries the ``cuda`` marker and skips where there is no
-CUDA device.  The module imports no jax, so on a GPU machine without it:
+CUDA device.  The module imports neither jax nor the JAX package, so on a
+GPU machine:
 
     python -m pytest -m cuda tests/test_torch_sketch_cuda.py
 """
@@ -11,10 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from metakssd_tpu.ops import golden
-from metakssd_tpu.params import SketchParams
-
-from metakssd_tpu_torch.ops import sketch, sketch_cuda
+from metakssd_tpu_torch.ops import golden, sketch, sketch_cuda
+from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.state import accept_tables
 
 from sketch_cases import CONFIGS, assert_pairs_equal, pairs, \
