@@ -10,18 +10,27 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
 1. card: requires torch.cuda.is_available(); prints nvidia-smi's
    name and power limit;
 2. build: compiles csrc/*.cu with nvcc into metakssd_tpu_torch/_build/;
-3. kernels: K1 (compact) and K2 (full) against their plain PyTorch
-   versions on the card, on 64M-window batches of configs (11,6,3),
-   (8,5,2) and (7,5,3) with 0.1% invalid bases, a poly-A stream whose
-   k-mer is accepted, and a forced tiny capacity.  On a 1 Mbase slice both
-   also equal the reference: ``golden.window_drtuples``, the JAX
-   package's numpy model (metakssd_tpu/ops/golden.py), which the port's
-   ``ops.sketch`` already runs for configs the kernels do not take.
-   Then K3 (membership) against its plain version, in identity and
-   values mode: about 4.19M distinct random u32 keys (>= 2^31 included)
-   and 1M sorted needles, half hits, with duplicates; a clustered
-   haystack whose needle blocks span more than the staged window; 1, 100,
-   2047 and 0 needles; an empty haystack; 0xFFFFFFFF present and absent.
+3. kernels: K1 (compact, with and without positions) and K2 (full)
+   against their plain PyTorch versions on the card, on 64M-window
+   batches of configs (11,6,3), (8,5,2) and (7,5,3) with 0.1% invalid
+   bases, a poly-A stream whose k-mer is accepted, and a forced tiny
+   capacity.  On a 1 Mbase slice both also equal the reference:
+   ``golden.window_drtuples``, the JAX package's numpy model
+   (metakssd_tpu/ops/golden.py), which the port's ``ops.sketch`` already
+   runs for configs the kernels do not take.  Then the kernels' filter:
+   bitmaps of other sizes than the default (the largest, 2^19 bits, at
+   subk = 5 and 6; folds so small that most or all windows pass; the
+   direct bitmap of subk = 4), a subk = 7 table of 16,000 dims, a stream
+   whose every 2k-th window passes the filter and fails the search
+   (timed beside a random stream), and 2^20 windows all kept at a
+   capacity between one tile's survivors and all of them.  K1's and K2's
+   times are printed beside those of the kernels that searched every
+   window, and their bounds.  Then K3 (membership) against its plain
+   version, in identity and values mode: about 4.19M distinct random
+   u32 keys (>= 2^31 included) and 1M sorted needles, half hits, with
+   duplicates; a clustered haystack whose needle blocks span more than
+   the staged window; 1, 100, 2047 and 0 needles; an empty haystack;
+   0xFFFFFFFF present and absent.
    Prints each kernel's time beside its plain version's (CUDA events,
    after a warm-up);
 4. slice: 1024 synthetic 1 Mbp genomes -> MarkerDB with the port's
@@ -55,13 +64,13 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    taxon holding a genome of coverage >= 1x in those reads reported;
 7. abv: one abundance vector per taxon of phase 6's markers (16,384
    vectors over 16,384 species dims, 30-600 nonzero dims of skewed
-   prevalence, lognormal percentages), ``composite -i``, and 256 queries
-   (192 DB vectors, 64 perturbed copies) through ``composite -s 0/1/2``:
+   prevalence, lognormal percentages), ``composite -i``, and 128 queries
+   (96 DB vectors, 32 perturbed copies) through ``composite -s 0/1/2``:
    sparse text identical between the routes; ``--dense`` on the card (a
    1 GiB float32 DB) with the sparse path's overlap sets, within 2e-3 of
    its measures (a query's L2 to itself excepted: ROADMAP.md section 3)
    and every DB query its own top cosine hit; ``--dense --device cpu`` on
-   16 queries within 2e-3 of the card's;
+   8 queries within 2e-3 of the card's;
 8. probes: the probe path P1-P4, the port's counterparts of the TPU
    probes of ``benchmarks/`` (``metakssd_tpu_torch/probes/``), each at its
    file's shapes (2^24 windows per dispatch) and timing method (16
@@ -78,10 +87,10 @@ The line before the last is the kernels' JSON record, with the launch
 counts of the ``profile`` leg (K1, K2), of the ``dist -r --device cuda``
 and ``set --device cuda`` legs (K3) and of the probe path (P1-P4, one
 entry per variant), and each kernel's bound: the larger of its bytes over
-3.35 TB/s and its 32-bit operations over 67 T/s (the H100's float32 rate
-outside the tensor cores; the table of peaks has no int32 figure),
-counted from this run's inputs.  The last line is ``{"ok": true,
-"device": {...}}``.  Without a CUDA device it exits 1 and
+3.35 TB/s and its 32-bit operations over the card's int32 rate (SMs x 64
+lanes x the largest SM clock, printed in phase 1), counted from this
+run's inputs (for K1 and K2, this run's kept windows).  The last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  All data is made from --seed with numpy under
 ``.smoke_work/`` and removed at the end.
 """
@@ -97,16 +106,21 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-L3K11 = (11, 6, 3)
+
+try:
+    from metakssd_tpu_torch.probes.smoke_data import (
+        CPU_READS, GENOME_LEN, L3K11, N_GENOMES, N_POLYA, READ_LEN,
+        SET_PER_TAXON, SET_POOL, SET_SHARED, SET_TAXA, SET_UNASSIGNED, check,
+        make_set_data, make_slice_data, read_fasta, run_cli, set_leg,
+        stage_seconds, write_fasta, write_fastq, write_zero_accepted_shuf)
+except ImportError as e:
+    sys.exit(f"chip_smoke: needs the checkout it lies in ({e})")
+
 CHECK_CONFIGS = [(11, 6, 3), (8, 5, 2), (7, 5, 3)]
 BATCH_WINDOWS = 64 << 20          # the streaming batch size, in windows
-N_GENOMES = 1024                  # MarkerDB genomes ...
-GENOME_LEN = 1_000_000            # ... of 1 Mbp each (1 Gbase)
-N_SAMPLED = 32                    # genomes the sample's reads come from
-N_READS = 4_000_000               # sample reads, poly-A block included
-READ_LEN = 150
-N_POLYA = 2000                    # poly-A reads: every window survives
-CPU_READS = 200_000               # reads of the --device cpu comparison
+FILTER_WINDOWS = 4 << 20          # windows of each extra filter check
+K1_MS_BEFORE = 1.3424             # K1 and K2 per 64M-window L3K11 batch when
+K2_MS_BEFORE = 1.8297             # they searched every window (PERF.md table)
 ALL_ONES = 0xFFFFFFFF
 MEMBER_HAY = 1 << 22              # K3 haystack draw (about 4.19M distinct)
 MEMBER_NEEDLES = 1 << 20          # K3 needles, half of them hits
@@ -115,53 +129,47 @@ K8S5L2 = (8, 5, 2)                # the prokaryote default of dist search
 RATES = (0.001, 0.005, 0.01, 0.02, 0.05, 0.10)   # query substitution rates
 N_PER_RATE = 16                   # mutated queries per rate
 N_UNRELATED = 32                  # queries from no reference genome
-SET_TAXA = 16384                  # set leg: taxa of a MarkerDB build ...
-SET_PER_TAXON = 4                 # ... of 4 genomes each ...
-SET_UNASSIGNED = 64               # ... and genomes of taxid 0 (dropped)
-SET_POOL = 1200                   # ids of a taxon's own
-SET_SHARED = 40                   # ids a taxon shares with each neighbour
-SET_KEEP = 0.8                    # share of its taxon's ids a genome holds
 CHAIN_TAXON = 4                   # real chain: taxa of 4 consecutive genomes
 ABV_DIMS = (30, 600)              # nonzero dims of an abundance vector
-ABV_DB_QUERIES = 192              # queries that are vectors of the DB ...
-ABV_PERTURBED = 64                # ... and perturbed copies of DB vectors
-ABV_CPU_QUERIES = 16              # dense queries run on the CPU too
+ABV_DB_QUERIES = 96               # queries that are vectors of the DB ...
+ABV_PERTURBED = 32                # ... and perturbed copies of DB vectors
+ABV_CPU_QUERIES = 8               # dense queries run on the CPU too
 DENSE_TOL = 2e-3                  # dense vs sparse (tests/test_dense_abv.py)
 PROBE_REPS = 3                    # timed runs of each probe variant
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory rate
-ALU_OPS_PER_S = 67e12             # H100 SXM float32 rate outside tensor cores
+INT32_LANES_PER_SM = 64           # Hopper: int32 operations per SM per clock
+INT32_OPS_PER_S = 0.0             # set from the card by card_int32_rate()
+
+
+def card_int32_rate() -> float:
+    """The card's int32 rate: SMs x 64 lanes x the largest SM clock that
+    nvidia-smi reports.  Every kernel here does integer work, so this,
+    not the float32 rate (which counts a fused multiply-add as two and
+    has twice the lanes), bounds their operations."""
+    global INT32_OPS_PER_S
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    INT32_OPS_PER_S = sms * INT32_LANES_PER_SM * mhz * 1e6
+    print(f"int32 rate: {sms} SMs x {INT32_LANES_PER_SM} lanes x {mhz:.0f} "
+          f"MHz = {INT32_OPS_PER_S / 1e12:.3f} T/s", flush=True)
+    return INT32_OPS_PER_S
 
 
 def _bound(nbytes: int, ops: int) -> tuple[float, str]:
-    """(least ms for the work, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    """(least ms for the work, what bounds it): bytes over the device
+    memory rate, 32-bit integer operations over the card's int32 rate."""
+    check(INT32_OPS_PER_S > 0, "card_int32_rate() has not run")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _phase(name: str, t0: float) -> None:
     print(f"phase {name}: {time.time() - t0:.3f} s", flush=True)
-
-
-def write_zero_accepted_shuf(path: str, cfg, seed: int):
-    """Write a seeded .shuf file whose substring 0 is accepted with
-    pfilter 0, so the poly-A k-mer survives (drtuple 0), and return it as
-    the port reads it.  Layout: int32 id, k, subk, drlevel, then the int32
-    permutation of range(16**subk); entries below the accept bound are
-    accepted.  The script names no module of the JAX package, so it
-    writes the file itself; the port's reader checks it."""
-    import numpy as np
-    from metakssd_tpu_torch.profile_e2e import read_shuf
-    k, subk, drlevel = cfg
-    rng = np.random.default_rng(seed)
-    arr = rng.permutation(1 << 4 * subk).astype("<i4")
-    sid = int(rng.integers(1, 2**31 - 1))
-    j = int(np.flatnonzero(arr == 0)[0])
-    arr[0], arr[j] = arr[j], arr[0]
-    with open(path, "wb") as f:
-        f.write(np.array([sid, k, subk, drlevel], "<i4").tobytes())
-        f.write(arr.tobytes())
-    return read_shuf(path)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -190,9 +198,187 @@ def _pairs(dr, pos):
     return np.asarray(pos)[order], np.asarray(dr)[order]
 
 
-def _check(cond: bool, what: str) -> None:
-    if not cond:
-        raise AssertionError(what)
+def _k1_k2_vs_plain(c, tabs, p, cap, what: str, res: dict) -> int:
+    """K1 (with positions) at ``cap`` and K2 on the CUDA codes ``c``
+    against their plain versions, element for element; updates the max
+    errors in ``res`` and returns the count of kept windows."""
+    import numpy as np
+    import torch
+    from metakssd_tpu_torch.ops import sketch_cuda
+
+    dr, pos, cnt = sketch_cuda.window_compact(c, tabs, p, cap, True)
+    pdr, ppos, pcnt = sketch_cuda.window_compact_plain(c, tabs, p, cap, True)
+    m = int(cnt.item())
+    check(m == int(pcnt.item()), f"{what} K1 count {m} vs plain "
+                                  f"{int(pcnt.item())}")
+    fdr, fk = sketch_cuda.window_full(c, tabs, p)
+    gdr, gk = sketch_cuda.window_full_plain(c, tabs, p)
+    res["k2_err"] = max(res["k2_err"], int(
+        ((fdr.long() & ALL_ONES) - (gdr.long() & ALL_ONES))
+        .abs().max().item()))
+    check(torch.equal(fdr, gdr) and torch.equal(fk, gk),
+           f"{what} K2 vs plain")
+    check(int(fk.sum().item()) == m, f"{what} K2 keeps {m} windows")
+    w = min(m, cap)
+    at = pos[:w].cpu().numpy()
+    if m <= cap:
+        a, b = np.sort(_u32(dr[:m])), np.sort(_u32(pdr[:m]))
+        if m:
+            res["k1_err"] = max(res["k1_err"], int(np.abs(
+                a.astype(np.int64) - b.astype(np.int64)).max()))
+        check(np.array_equal(a, b), f"{what} K1 drtuple multiset")
+        pa = _pairs(_u32(dr[:m]), at)
+        pb = _pairs(_u32(pdr[:m]), ppos[:m].cpu().numpy())
+        check(np.array_equal(pa[0], pb[0]) and np.array_equal(pa[1], pb[1]),
+               f"{what} K1 (drtuple, position) pairs")
+    else:
+        # past the capacity K1 holds `cap` distinct kept windows, each
+        # with its own drtuple (K2's, which equals the plain version's)
+        check(np.unique(at).size == w and np.array_equal(
+            _u32(dr[:w]), _u32(fdr)[at]) and bool(fk.cpu().numpy()[at].all()),
+            f"{what} K1 slots at capacity {cap} of {m}")
+    # without positions: the same count and multiset
+    dr2, none, cnt2 = sketch_cuda.window_compact(c, tabs, p, cap)
+    check(none is None and int(cnt2.item()) == m, f"{what} K1 no-pos count")
+    if m <= cap:
+        check(np.array_equal(np.sort(_u32(dr2[:m])), np.sort(_u32(dr[:m]))),
+               f"{what} K1 without positions")
+    return m
+
+
+def _filter_cases(work: str, seed: int, res: dict) -> None:
+    """What the filter adds to check: bitmaps of other sizes (the
+    largest, 2^19 bits, leaves two blocks to an SM; subk = 4 is direct),
+    a subk = 7 table near the largest the kernel path takes, a stream of
+    false positives, and a stream kept whole at a capacity between one
+    tile's survivors and all of them."""
+    import numpy as np
+    import torch
+    from metakssd_tpu_torch.ops import sketch_cuda, sketch_filter
+    from metakssd_tpu_torch.params import SketchParams
+    from metakssd_tpu_torch.profile_e2e import read_shuf
+    from metakssd_tpu_torch.state import accept_tables, make_accept_tables
+
+    def sized(shuf, log2):
+        tups, pf = shuf.device_tables()[:2]
+        return make_accept_tables(tups, pf, shuf.params.subk, dev, log2)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 5)
+    n = FILTER_WINDOWS + 31
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    codes[rng.integers(0, n, n // 1000)] = 4
+    codes[1 << 20:(1 << 20) + 10_000] = 0
+    write_zero_accepted_shuf(os.path.join(work, "K6S4L2.shuf"), (6, 4, 2),
+                             seed)
+    for cfg, log2 in (((8, 5, 2), 19), ((7, 5, 3), 16), ((11, 6, 3), 19),
+                      ((11, 6, 3), 12), ((8, 5, 2), 10), ((6, 4, 2), None)):
+        shuf = read_shuf(os.path.join(work, "K%dS%dL%d.shuf" % cfg))
+        p = shuf.params
+        tabs = sized(shuf, log2)
+        log2 = tabs.filter_log2
+        check((log2 == 4 * p.subk) == (cfg == (6, 4, 2)),
+              f"{cfg}: 2^{log2}-bit filter, direct or not")
+        c = torch.from_numpy(codes[:FILTER_WINDOWS + p.kmer_len - 1]).to(dev)
+        m = _k1_k2_vs_plain(c, tabs, p, FILTER_WINDOWS, f"{cfg} 2^{log2}-bit "
+                            "filter", res)
+        ncand = sketch_cuda.filter_candidates(c, tabs, p)[0].numel()
+        print(f"  {cfg} filter of 2^{log2} bits: {ncand} candidates, {m} kept "
+              f"of {FILTER_WINDOWS} windows == plain", flush=True)
+
+    # subk = 7, 16,000 accepted dims (no shuffle file gives more than
+    # 4096; the kernels take any sorted table): the largest fold, 2^19
+    p = SketchParams(9, 7, 4)
+    acc = np.unique(rng.integers(0, p.shuf_len, 16_000)).astype(np.uint32)
+    acc[0] = 0
+    pf = rng.integers(0, 1 << 12, acc.size).astype(np.uint32)
+    pf[0] = 0
+    tabs = make_accept_tables(acc, pf, p.subk, dev)
+    check(tabs.filter_log2 == 19, f"subk 7 filter 2^{tabs.filter_log2}")
+    hits, _ = sketch_filter.codes_with_dims(
+        rng.choice(acc, 100_000).astype(np.int64), p, seed + 6)
+    fdims = sketch_filter.false_positive_dims(
+        tabs.accept, tabs.filter, 19, p.subk, 1 << 22, seed + 7)
+    fps, fkept = sketch_filter.codes_with_dims(fdims[:100_000], p, seed + 8)
+    c = torch.from_numpy(np.concatenate(
+        [codes[:FILTER_WINDOWS // 2], hits, fps])).to(dev)
+    m = _k1_k2_vs_plain(c, tabs, p, c.numel(), "subk 7 table", res)
+    ncand = sketch_cuda.filter_candidates(c, tabs, p)[0].numel()
+    check(m > 25_000 and ncand >= m + fkept.size, "subk 7: too few hits or "
+                                                   "false positives")
+    print(f"  (9, 7, 4) table of {acc.size} dims, 2^19-bit fold: {ncand} "
+          f"candidates ({fkept.size} made false positives), {m} kept of "
+          f"{c.numel() - p.kmer_len + 1} windows == plain", flush=True)
+
+    # false positives at L3K11's default bitmap: every 2k-th window passes
+    # the filter and fails the search; time beside the random stream's
+    shuf = read_shuf(os.path.join(work, "K%dS%dL%d.shuf" % L3K11))
+    p = shuf.params
+    tabs = accept_tables(shuf, dev)
+    fdims = sketch_filter.false_positive_dims(
+        tabs.accept, tabs.filter, tabs.filter_log2, p.subk, 1 << 22, seed + 9)
+    fps, fkept = sketch_filter.codes_with_dims(fdims[:60_000], p, seed + 10)
+    stream = np.tile(fps, FILTER_WINDOWS // fps.size + 1)[
+        :FILTER_WINDOWS + p.kmer_len - 1]
+    c = torch.from_numpy(stream).to(dev)
+    m = _k1_k2_vs_plain(c, tabs, p, FILTER_WINDOWS, "false positives", res)
+    ncand = sketch_cuda.filter_candidates(c, tabs, p)[0].numel()
+    check(ncand > 20 * max(m, 1) and ncand > FILTER_WINDOWS // 30,
+           f"false-positive stream: {ncand} candidates, {m} kept")
+    r = torch.from_numpy(codes[:FILTER_WINDOWS + p.kmer_len - 1]).to(dev)
+    cap = sketch_cuda.default_capacity(FILTER_WINDOWS, tabs)
+    t_fp = _time_ms(lambda: sketch_cuda.window_compact(c, tabs, p, cap), 10)
+    t_rand = _time_ms(lambda: sketch_cuda.window_compact(r, tabs, p, cap), 10)
+    rcand = sketch_cuda.filter_candidates(r, tabs, p)[0].numel()
+    print(f"  false positives, {L3K11}: {ncand} candidates, {m} kept of "
+          f"{FILTER_WINDOWS} windows == plain; K1 {t_fp:.4f} ms against "
+          f"{t_rand:.4f} ms on a random stream ({rcand} candidates)",
+          flush=True)
+
+    # every window kept over 256 tiles, at a capacity between one tile's
+    # survivors (4096) and all of them
+    for cfg in (L3K11, K8S5L2):
+        shuf = read_shuf(os.path.join(work, "K%dS%dL%d.shuf" % cfg))
+        p = shuf.params
+        tabs = accept_tables(shuf, dev)
+        pa = torch.zeros((1 << 20) + p.kmer_len - 1, dtype=torch.uint8,
+                         device=dev)
+        m = _k1_k2_vs_plain(pa, tabs, p, 300_000, f"{cfg} all kept", res)
+        check(m == 1 << 20, f"{cfg} all kept: {m}")
+    print("  all windows kept (2^20, 256 tiles) at capacity 300000: count "
+          "runs on, slots hold distinct kept windows, K2 == plain",
+          flush=True)
+
+
+def _k12_bounds(ks: dict):
+    """Bounds of K1 and K2 at the 64M-window L3K11 batch: the codes, both
+    tables and the filter bitmap read once; K1 writes its survivors'
+    drtuples and the counter, K2 a drtuple and a keep flag per window.
+    Operations: the scan's tuple extraction and one filter test per
+    window, and for this run's kept windows a lower bound of
+    ceil(log2 n) steps and the drtuple.  The filter's other candidates
+    (printed by the kernels phase) are the design's cost, not the
+    function's, and do not enter the bound."""
+    from metakssd_tpu_torch.probes._common import filter_ops
+    ops = filter_ops(ks["nwin"], ks["survivors"],
+                     (ks["n_accept"] - 1).bit_length())
+    read = ks["n_codes"] + 8 * ks["n_accept"] + ks["filter_bytes"]
+    return (_bound(read + 4 * ks["survivors"] + 8, ops),
+            _bound(read + 8 * ks["nwin"], ops))
+
+
+def _k12_lines(kres: dict) -> None:
+    """K1's and K2's times beside those of the kernels that searched
+    every window, and their bounds."""
+    t = kres["times"]
+    for name, key, before, bound in zip(
+            ("K1 sketch_compact", "K2 sketch_full"), ("k1", "k2"),
+            (K1_MS_BEFORE, K2_MS_BEFORE), _k12_bounds(kres["shape"])):
+        print(f"{name}: {t[key]:.4f} ms per 64M-window L3K11 batch "
+              f"(search of every window: {before:.4f} ms, "
+              f"{before / t[key]:.2f}x); bound {bound[0]:.4f} ms by "
+              f"{bound[1]}, {100 * bound[0] / t[key]:.1f}% of the time",
+              flush=True)
 
 
 def phase_kernels(work: str, seed: int) -> dict:
@@ -218,37 +404,14 @@ def phase_kernels(work: str, seed: int) -> dict:
         nwin = n - p.kmer_len + 1
         cap = sketch_cuda.default_capacity(nwin, tabs)
 
-        # K1 with positions vs plain: count, drtuple multiset, pairs
-        dr, pos, cnt = sketch_cuda.window_compact(c, tabs, p, cap, True)
-        pdr, ppos, pcnt = sketch_cuda.window_compact_plain(c, tabs, p, cap,
-                                                           True)
-        m = int(cnt.item())
-        _check(m == int(pcnt.item()) and 0 < m <= cap,
-               f"{cfg} K1 count {m} vs plain {int(pcnt.item())}")
-        a, b = np.sort(_u32(dr[:m])), np.sort(_u32(pdr[:m]))
-        res["k1_err"] = max(res["k1_err"], int(np.abs(
-            a.astype(np.int64) - b.astype(np.int64)).max()))
-        _check(np.array_equal(a, b), f"{cfg} K1 drtuple multiset")
-        pa = _pairs(_u32(dr[:m]), pos[:m].cpu().numpy())
-        pb = _pairs(_u32(pdr[:m]), ppos[:m].cpu().numpy())
-        _check(np.array_equal(pa[0], pb[0]) and np.array_equal(pa[1], pb[1]),
-               f"{cfg} K1 (drtuple, position) pairs")
-        del dr, pos, pdr, ppos
-
-        # K2 vs plain, window by window
-        fdr, fk = sketch_cuda.window_full(c, tabs, p)
-        gdr, gk = sketch_cuda.window_full_plain(c, tabs, p)
-        res["k2_err"] = max(res["k2_err"], int(
-            ((fdr.long() & 0xFFFFFFFF) - (gdr.long() & 0xFFFFFFFF))
-            .abs().max().item()))
-        _check(torch.equal(fdr, gdr) and torch.equal(fk, gk),
-               f"{cfg} K2 vs plain")
-        _check(int(fk.sum().item()) == m, f"{cfg} K2 keeps {m} windows")
-        del fdr, fk, gdr, gk
+        # K1 with and without positions and K2 vs plain, element for element
+        m = _k1_k2_vs_plain(c, tabs, p, cap, f"{cfg}", res)
+        check(0 < m <= cap, f"{cfg} K1 count {m} at capacity {cap}")
+        ncand = sketch_cuda.filter_candidates(c, tabs, p)[0].numel()
 
         # forced tiny capacity: the count keeps counting past it
         _, _, cnt = sketch_cuda.window_compact(c, tabs, p, 100, True)
-        _check(int(cnt.item()) == m, f"{cfg} K1 count past capacity")
+        check(int(cnt.item()) == m, f"{cfg} K1 count past capacity")
 
         # 1 Mbase slice: the chunk loop (K1, positions) and K2 equal golden,
         # also through the overflow rerun at a tiny capacity
@@ -258,12 +421,12 @@ def phase_kernels(work: str, seed: int) -> dict:
             d, ps = sketch_cuda.sketch_windows(sl, p, tabs, want_pos=True,
                                                capacity=capacity)
             x, y = _pairs(d.astype(np.uint64), ps), _pairs(gd, gp)
-            _check(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1]),
+            check(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1]),
                    f"{cfg} chunk loop vs golden (capacity {capacity})")
         fdr, fk = sketch_cuda.window_full(
             torch.from_numpy(sl).to(dev), tabs, p)
         keep = fk.cpu().numpy().astype(bool)
-        _check(np.array_equal(np.flatnonzero(keep), gp) and np.array_equal(
+        check(np.array_equal(np.flatnonzero(keep), gp) and np.array_equal(
             _u32(fdr)[keep].astype(np.uint64), gd), f"{cfg} K2 vs golden")
 
         # poly-A stream: every window kept, past the default capacity
@@ -272,18 +435,21 @@ def phase_kernels(work: str, seed: int) -> dict:
         npa = pa_codes.size - p.kmer_len + 1
         pcap = sketch_cuda.default_capacity(npa, tabs)
         _, _, cnt = sketch_cuda.window_compact(pc, tabs, p, pcap)
-        _check(int(cnt.item()) == npa > pcap, f"{cfg} poly-A K1 count")
+        check(int(cnt.item()) == npa > pcap, f"{cfg} poly-A K1 count")
         fdr, fk = sketch_cuda.window_full(pc, tabs, p)
         gdr, gk = sketch_cuda.window_full_plain(pc, tabs, p)
-        _check(torch.equal(fdr, gdr) and torch.equal(fk, gk)
+        check(torch.equal(fdr, gdr) and torch.equal(fk, gk)
                and int(fk.sum().item()) == npa, f"{cfg} poly-A K2")
         d, _ = sketch_cuda.sketch_windows(pa_codes, p, tabs)
-        _check(d.size == npa and not d.any(), f"{cfg} poly-A chunk loop")
+        check(d.size == npa and not d.any(), f"{cfg} poly-A chunk loop")
 
-        # times at the 64M-window batch (positions off: the streaming path)
+        # times at the 64M-window batch (k1: positions off, the streaming
+        # path; k1_pos: positions on, the genome path)
         t = {
             "k1": _time_ms(lambda: sketch_cuda.window_compact(
                 c, tabs, p, cap), 10),
+            "k1_pos": _time_ms(lambda: sketch_cuda.window_compact(
+                c, tabs, p, cap, True), 10),
             "k1_plain": _time_ms(lambda: sketch_cuda.window_compact_plain(
                 c, tabs, p, cap, False), 3),
             "k2": _time_ms(lambda: sketch_cuda.window_full(c, tabs, p), 10),
@@ -293,15 +459,19 @@ def phase_kernels(work: str, seed: int) -> dict:
         for name, ms in t.items():
             print(f"  {cfg} {name:9s} {ms:10.4f} ms  "
                   f"{nwin / ms / 1e3:10.1f} Mwin/s", flush=True)
-        print(f"  {cfg} kernels == plain (K1 {m} survivors of {nwin} "
-              "windows, K2 all windows), == golden on 1 Mbase, poly-A "
+        print(f"  {cfg} kernels == plain (K1 {m} survivors and {ncand} "
+              f"filter candidates of {nwin} windows, 2^{tabs.filter_log2}-"
+              "bit filter; K2 all windows), == golden on 1 Mbase, poly-A "
               "and forced-capacity overflow ok", flush=True)
         if cfg == L3K11:
             res["times"] = t
-            res["shape"] = {"n_codes": n, "nwin": nwin, "TL": p.kmer_len,
-                            "n_accept": tabs.size, "survivors": m}
+            res["shape"] = {"n_codes": n, "nwin": nwin,
+                            "n_accept": tabs.size, "survivors": m,
+                            "filter_bytes": 4 * tabs.filter.numel()}
         del c, codes
         torch.cuda.empty_cache()
+    _filter_cases(work, seed, res)
+    torch.cuda.empty_cache()
     return res
 
 
@@ -353,22 +523,22 @@ def phase_member(seed: int) -> dict:
             m, val = merge.member(h, v, nd)
             pm, pv = merge.member_plain(h, v, nd)
             torch.cuda.synchronize()
-            _check(torch.equal(m, pm), f"K3 {name}: member differs from plain")
+            check(torch.equal(m, pm), f"K3 {name}: member differs from plain")
             if needles.size:
                 err = max(err, int(((val.long() & 0xFFFFFFFF)
                                     - (pv.long() & 0xFFFFFFFF))
                                    .abs().max().item()))
-            _check(torch.equal(val, pv), f"K3 {name}: value differs")
+            check(torch.equal(val, pv), f"K3 {name}: value differs")
         hits = int(m.sum().item())
         if name.startswith("0xFFFFFFFF"):
             tail = m[nd == -1].bool()
-            _check(bool(tail.all()) if "present" in name
+            check(bool(tail.all()) if "present" in name
                    else not bool(tail.any()), f"K3 {name}")
         print(f"  K3 {name:18s} haystack {hay.size:8d} needles "
               f"{needles.size:8d} members {hits:8d} == plain", flush=True)
         if name == "4M x 1M":
             timed = (h, merge.u32_tensor(vals).to(dev), nd)
-            _check(hits >= needles.size // 2, "K3 4M x 1M: too few hits")
+            check(hits >= needles.size // 2, "K3 4M x 1M: too few hits")
     h, v, nd = timed
     one_query = nd[::nd.numel() // QUERY_KMERS][:QUERY_KMERS].contiguous()
     # the library yardstick: torch.searchsorted of the same keys, as int64
@@ -391,103 +561,6 @@ def phase_member(seed: int) -> dict:
                                               "needles": nd.numel()}}
 
 
-def _write_fasta(path: str, name: str, seq_ascii) -> None:
-    """One record, its sequence on one line (the numpy fasta parser, which
-    runs where the native one does not build, costs a Python step per
-    line)."""
-    with open(path, "wb") as f:
-        f.write(f">{name} synthetic genome\n".encode())
-        f.write(seq_ascii.tobytes() + b"\n")
-
-
-def _read_fasta(path: str):
-    """The sequence of a file written by _write_fasta, as ASCII uint8."""
-    import numpy as np
-    with open(path, "rb") as f:
-        body = f.read().split(b"\n", 1)[1].replace(b"\n", b"")
-    return np.frombuffer(body, np.uint8).copy()
-
-
-def _write_fastq(path: str, reads_ascii) -> None:
-    """Fixed-width records: '@r%07d\\n' + seq + '\\n+\\n' + qual + '\\n'."""
-    import numpy as np
-    nreads, rl = reads_ascii.shape
-    rec = 10 + rl + 3 + rl + 1
-    block = 1 << 18
-    with open(path, "wb") as f:
-        for lo in range(0, nreads, block):
-            r = reads_ascii[lo:lo + block]
-            b = r.shape[0]
-            out = np.empty((b, rec), np.uint8)
-            ids = np.arange(lo, lo + b)
-            out[:, 0] = ord("@")
-            out[:, 1] = ord("r")
-            for d in range(7):
-                out[:, 8 - d] = ord("0") + (ids // 10 ** d) % 10
-            out[:, 9] = ord("\n")
-            out[:, 10:10 + rl] = r
-            out[:, 10 + rl:13 + rl] = np.frombuffer(b"\n+\n", np.uint8)
-            out[:, 13 + rl:13 + 2 * rl] = ord("I")
-            out[:, rec - 1] = ord("\n")
-            f.write(out.tobytes())
-
-
-def make_slice_data(work: str, seed: int):
-    """Genomes, the L3K11 shuffle and the read sample, all from ``seed``.
-    Returns (shuf path, genome dir, fastq path, reads as ASCII
-    [N_READS, READ_LEN], {sampled genome path: coverage}, {sampled genome
-    path: coverage by the first CPU_READS reads})."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    shufp = os.path.join(work, "L3K11.shuf")
-    write_zero_accepted_shuf(shufp, L3K11, seed)
-    gdir = os.path.join(work, "genomes")
-    os.makedirs(gdir)
-    sampled = set(rng.choice(N_GENOMES, N_SAMPLED, replace=False).tolist())
-    kept = {}
-    for i in range(N_GENOMES):
-        g = acgt[rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)]
-        path = os.path.join(gdir, f"g{i:04d}.fa")
-        _write_fasta(path, f"g{i:04d}", g)
-        if i in sampled:
-            kept[path] = g
-    paths = sorted(kept)
-    weights = rng.lognormal(0.0, 1.5, len(paths))
-    counts = rng.multinomial(N_READS - N_POLYA, weights / weights.sum())
-    parts = []
-    for path, cnt in zip(paths, counts):
-        starts = rng.integers(0, GENOME_LEN - READ_LEN + 1, cnt)
-        parts.append(kept[path][starts[:, None] + np.arange(READ_LEN)])
-    reads = np.concatenate(parts)
-    perm = rng.permutation(reads.shape[0])
-    reads = reads[perm]
-    # the first CPU_READS reads lie before the poly-A block
-    first = np.bincount(np.repeat(np.arange(len(paths)), counts)[perm]
-                        [:CPU_READS], minlength=len(paths))
-    flat = reads.reshape(-1)
-    flat[rng.integers(0, flat.size, flat.size // 1000)] = ord("N")
-    mid = reads.shape[0] // 2
-    reads = np.concatenate([reads[:mid],
-                            np.full((N_POLYA, READ_LEN), ord("A"), np.uint8),
-                            reads[mid:]])
-    fq = os.path.join(work, "sample.fq")
-    _write_fastq(fq, reads)
-    coverage = {path: cnt * READ_LEN / GENOME_LEN
-                for path, cnt in zip(paths, counts)}
-    sub_coverage = {path: cnt * READ_LEN / GENOME_LEN
-                    for path, cnt in zip(paths, first)}
-    return shufp, gdir, fq, reads, coverage, sub_coverage
-
-
-def _stage_seconds(timer) -> dict:
-    out: dict = {}
-    for name, dt in timer.stages:
-        out[name] = round(out.get(name, 0.0) + dt, 4)
-    return out
-
-
 def _tsv_rows(path: str) -> list:
     with open(path) as f:
         return [ln.split("\t") for ln in f.read().splitlines()]
@@ -497,51 +570,49 @@ def phase_slice(work: str, seed: int) -> dict:
     import torch
     from metakssd_tpu_torch import cli
     from metakssd_tpu_torch.ops import sketch_cuda
-    from metakssd_tpu_torch.pipeline import TIMER, native
+    from metakssd_tpu_torch.pipeline import TIMER
 
     t0 = time.time()
     shufp, gdir, fq, reads, coverage, sub_coverage = make_slice_data(
         work, seed)
     print(f"  data: {N_GENOMES} genomes x {GENOME_LEN} bp, "
           f"{reads.shape[0]} reads x {READ_LEN} bp ({N_POLYA} poly-A) in "
-          f"{time.time() - t0:.1f} s; fastq parser: "
-          f"{'native' if native.available() else 'numpy seqio'}",
-          flush=True)
+          f"{time.time() - t0:.1f} s", flush=True)
     db = os.path.join(work, "markerdb")
     out = os.path.join(work, "profile_cuda")
 
     torch.cuda.reset_peak_memory_stats()
     sketch_cuda.reset_launches()
     t = time.time()
-    _check(cli.main(["dist", "-L", shufp, "-o", db, "--device", "cuda",
+    check(cli.main(["dist", "-L", shufp, "-o", db, "--device", "cuda",
                      gdir]) == 0, "dist (MarkerDB build) failed")
     dist_s = time.time() - t
     dist_launches = dict(sketch_cuda.LAUNCHES)
     print(f"  dist    {dist_s:.3f} s  launches {dist_launches}", flush=True)
-    _check(dist_launches["sketch_compact"] > 0,
+    check(dist_launches["sketch_compact"] > 0,
            f"K1 never launched in dist: {dist_launches}")
 
     sketch_cuda.reset_launches()
     t = time.time()
-    _check(cli.main(["profile", "-L", shufp, "-r", db, "-o", out,
+    check(cli.main(["profile", "-L", shufp, "-r", db, "-o", out,
                      "--device", "cuda", fq]) == 0, "profile failed")
     profile_s = time.time() - t
     launches = dict(sketch_cuda.LAUNCHES)
-    stages = _stage_seconds(TIMER)
+    stages = stage_seconds(TIMER)
     peak = torch.cuda.max_memory_allocated()
     print(f"  profile {profile_s:.3f} s  launches {launches}  stages "
           f"{json.dumps(stages)}", flush=True)
     print(f"  peak device memory (dist and profile) {peak / 2**20:.1f} MiB",
           flush=True)
-    _check(launches["sketch_compact"] > 0 and launches["sketch_full"] > 0,
+    check(launches["sketch_compact"] > 0 and launches["sketch_full"] > 0,
            f"a sketch kernel never launched in profile: {launches}")
 
     rows = _tsv_rows(os.path.join(out, "abundance.tsv"))
     names = {r[1] for r in rows}
-    _check(rows and names <= set(coverage),
+    check(rows and names <= set(coverage),
            f"abundance.tsv names unsampled genomes: {names - set(coverage)}")
     missing = [g for g, cov in coverage.items() if cov >= 1 and g not in names]
-    _check(not missing, f"genomes of coverage >= 1x missing: {missing}")
+    check(not missing, f"genomes of coverage >= 1x missing: {missing}")
     print(f"  abundance.tsv: {len(rows)} genomes, all sampled; "
           f"{sum(c >= 1 for c in coverage.values())} of {len(coverage)} "
           "sampled genomes have coverage >= 1x and all are present",
@@ -549,13 +620,13 @@ def phase_slice(work: str, seed: int) -> dict:
 
     # the same profile on the first reads: CUDA kernels vs plain on CPU
     sub = os.path.join(work, "subset.fq")
-    _write_fastq(sub, reads[:CPU_READS])
+    write_fastq(sub, reads[:CPU_READS])
     del reads
     sub_out = {}
     for dev in ("cuda", "cpu"):
         sub_out[dev] = os.path.join(work, f"subset_{dev}")
         t = time.time()
-        _check(cli.main(["profile", "-L", shufp, "-r", db, "-o",
+        check(cli.main(["profile", "-L", shufp, "-r", db, "-o",
                          sub_out[dev], "--device", dev, sub]) == 0,
                f"subset profile --device {dev} failed")
         print(f"  subset ({CPU_READS} reads) --device {dev}: "
@@ -564,7 +635,7 @@ def phase_slice(work: str, seed: int) -> dict:
         with open(os.path.join(sub_out["cuda"], name), "rb") as a, \
                 open(os.path.join(sub_out["cpu"], name), "rb") as b:
             x, y = a.read(), b.read()
-        _check(x == y and len(x) > 0,
+        check(x == y and len(x) > 0,
                f"{name}: --device cuda and --device cpu differ")
     print("  subset: --device cuda and --device cpu TSVs byte-identical",
           flush=True)
@@ -589,7 +660,7 @@ def make_search_queries(work: str, gdir: str, seed: int):
         if i < src.size:
             gpath, rate = os.path.join(gdir, refs[src[i]]), \
                 RATES[i // N_PER_RATE]
-            seq = _read_fasta(gpath)
+            seq = read_fasta(gpath)
             hit = np.flatnonzero(rng.random(seq.size) < rate)
             code = np.searchsorted(acgt, seq[hit])
             seq[hit] = acgt[(code + rng.integers(1, 4, hit.size)) % 4]
@@ -597,19 +668,8 @@ def make_search_queries(work: str, gdir: str, seed: int):
         else:
             seq = acgt[rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)]
             truth[path] = (None, None)
-        _write_fasta(path, f"q{i:03d}", seq)
+        write_fasta(path, f"q{i:03d}", seq)
     return qdir, truth
-
-
-def _run_cli(label: str, argv: list) -> float:
-    from metakssd_tpu_torch import cli
-    from metakssd_tpu_torch.pipeline import TIMER
-    t = time.time()
-    _check(cli.main(argv) == 0, f"{label} failed: {argv}")
-    dt = time.time() - t
-    print(f"  {label:36s} {dt:9.3f} s  stages "
-          f"{json.dumps(_stage_seconds(TIMER))}", flush=True)
-    return dt
 
 
 def phase_search(work: str, seed: int) -> dict:
@@ -626,34 +686,34 @@ def phase_search(work: str, seed: int) -> dict:
     refco, qryco = os.path.join(work, "refco"), os.path.join(work, "qryco")
     torch.cuda.reset_peak_memory_stats()
     sketch_cuda.reset_launches()
-    _run_cli("dist (reference)", ["dist", "-L", shufp, "-o", refco,
+    run_cli("dist (reference)", ["dist", "-L", shufp, "-o", refco,
                                   "--device", "cuda", gdir])
-    _check(sketch_cuda.LAUNCHES["sketch_compact"] > 0,
+    check(sketch_cuda.LAUNCHES["sketch_compact"] > 0,
            "K1 never launched in the reference build")
     t = time.time()
     qdir, truth = make_search_queries(work, gdir, seed)
     print(f"  query data: {len(truth)} genomes in {time.time() - t:.1f} s",
           flush=True)
-    _run_cli("dist (queries)", ["dist", "-L", shufp, "-o", qryco,
+    run_cli("dist (queries)", ["dist", "-L", shufp, "-o", qryco,
                                 "--device", "cuda", qdir])
 
     out = {k: os.path.join(work, f"d_{k}")
            for k in ("cuda", "cpu", "mco", "shard")}
     sketch_cuda.reset_launches()
-    secs = {"cuda": _run_cli("dist -r --device cuda", [
+    secs = {"cuda": run_cli("dist -r --device cuda", [
         "dist", "-r", refco, "-o", out["cuda"], "--device", "cuda", qryco])}
     launches = dict(sketch_cuda.LAUNCHES)
     print(f"  search launches {launches}", flush=True)
-    _check(launches["member"] > 0, f"K3 never launched in the search: "
+    check(launches["member"] > 0, f"K3 never launched in the search: "
                                    f"{launches}")
-    secs["cpu"] = _run_cli("dist -r --device cpu", [
+    secs["cpu"] = run_cli("dist -r --device cpu", [
         "dist", "-r", refco, "-o", out["cpu"], "--device", "cpu", qryco])
     refmco = os.path.join(work, "refmco")
-    _run_cli("dist -r (stage II)", ["dist", "-r", refco, "-o", refmco,
+    run_cli("dist -r (stage II)", ["dist", "-r", refco, "-o", refmco,
                                     "--component_sz", "6"])
-    secs["mco"] = _run_cli("dist -r mco", [
+    secs["mco"] = run_cli("dist -r mco", [
         "dist", "-r", refmco, "-o", out["mco"], "--device", "cuda", qryco])
-    secs["shard"] = _run_cli("dist -r --shard-db 1", [
+    secs["shard"] = run_cli("dist -r --shard-db 1", [
         "dist", "-r", refco, "--shard-db", "1", "-o", out["shard"],
         "--device", "cuda", qryco])
     print(f"  peak device memory (search leg) "
@@ -663,26 +723,26 @@ def phase_search(work: str, seed: int) -> dict:
     for k, d in out.items():
         with open(os.path.join(d, "distance.out"), "rb") as f:
             texts[k] = f.read()
-    _check(all(t == texts["cuda"] for t in texts.values()),
+    check(all(t == texts["cuda"] for t in texts.values()),
            "the four distance.out files differ")
     jac: dict = {}
     for ln in texts["cuda"].decode().splitlines()[1:]:
         col = ln.split("\t")
         jac.setdefault(col[0], {})[col[1]] = float(col[3])
-    _check(set(jac) == set(truth) and all(len(v) == N_GENOMES
+    check(set(jac) == set(truth) and all(len(v) == N_GENOMES
                                           for v in jac.values()),
            "distance.out does not hold every query x reference pair")
     by_rate: dict = {}
     for q, (src, rate) in truth.items():
         best = max(jac[q], key=jac[q].get)
         if src is None:
-            _check(jac[q][best] < 0.01, f"unrelated {q} reaches Jaccard "
+            check(jac[q][best] < 0.01, f"unrelated {q} reaches Jaccard "
                                         f"{jac[q][best]} against {best}")
             continue
-        _check(best == src, f"{q}: best reference {best}, source {src}")
+        check(best == src, f"{q}: best reference {best}, source {src}")
         by_rate.setdefault(rate, []).append(jac[q][src])
     med = [float(np.median(by_rate[r])) for r in RATES]
-    _check(all(a > b for a, b in zip(med, med[1:])),
+    check(all(a > b for a, b in zip(med, med[1:])),
            f"median Jaccard does not fall with the rate: {med}")
     unrelated = max(max(jac[q].values())
                     for q, (src, _) in truth.items() if src is None)
@@ -694,99 +754,33 @@ def phase_search(work: str, seed: int) -> dict:
     return {"launches": launches, "seconds": secs}
 
 
-def make_set_data(work: str, seed: int):
-    """A synthetic L3K11 sketch dir at a MarkerDB build's scale and its
-    taxon file.  SET_TAXA taxa of SET_PER_TAXON genomes; a taxon's pool is
-    SET_POOL ids of its own and SET_SHARED shared with each neighbouring
-    taxon (distinct random u32, >= 2^31 included); a genome holds each id
-    of its taxon's pool with probability SET_KEEP (about 1,024 ids).  After
-    every (SET_TAXA / SET_UNASSIGNED)-th taxon comes a genome of taxid 0
-    that copies a random taxon's pool.  Returns (sketch dir, taxon file,
-    number of ids)."""
-    import numpy as np
-    from metakssd_tpu_torch.pipeline import CoStat, write_codir
-    rng = np.random.default_rng(seed + 3)
-    t = SET_TAXA
-    need = t * (SET_POOL + SET_SHARED)
-    ids = np.unique(rng.integers(0, 1 << 32, need + need // 8,
-                                 dtype=np.uint64).astype(np.uint32))
-    ids = rng.permutation(ids)[:need]
-    own = ids[:t * SET_POOL].reshape(t, SET_POOL)
-    shared = ids[t * SET_POOL:].reshape(t, SET_SHARED)
-    pool = np.concatenate([own, shared, np.roll(shared, 1, axis=0)], axis=1)
-    pool.sort(axis=1)
-    taxon = np.repeat(np.arange(t), SET_PER_TAXON)
-    taxon = np.insert(taxon, np.arange(0, t, t // SET_UNASSIGNED)
-                      * SET_PER_TAXON + SET_PER_TAXON, -1)
-    rows = pool[np.where(taxon >= 0, taxon,
-                         rng.integers(0, t, taxon.size))]
-    keep = rng.random(rows.shape, dtype=np.float32) < SET_KEEP
-    flat = rows[keep]
-    del rows, pool
-    lens = keep.sum(axis=1)
-    per_genome = [[(x, None)] for x in np.split(flat, np.cumsum(lens)[:-1])]
-    co = os.path.join(work, "set_sketches")
-    write_codir(co, CoStat(
-        shuf_id=int(rng.integers(1, 2**31 - 1)), koc=False, kmerlen=22,
-        dim_rd_len=6, comp_num=1, all_ctx_ct=int(flat.size),
-        ctx_ct=lens.astype(np.uint32),
-        names=[f"genome{g:05d}.fa" for g in range(taxon.size)]), per_genome)
-    taxf = os.path.join(work, "set_taxa.tsv")
-    with open(taxf, "w") as f:
-        f.writelines(f"{1000 + x}\ttaxon{x}\n" if x >= 0 else "0\n"
-                     for x in taxon.tolist())
-    return co, taxf, int(flat.size)
-
-
 def _same_dirs(a: str, b: str, what: str) -> int:
     """Every file of dir ``a`` byte-identical in dir ``b`` (the hidden
     MarkerDB staging sidecars left out); returns their bytes."""
     fa = sorted(f for f in os.listdir(a) if not f.startswith("."))
     fb = sorted(f for f in os.listdir(b) if not f.startswith("."))
-    _check(fa == fb and fa, f"{what}: files differ: {fa} vs {fb}")
+    check(fa == fb and fa, f"{what}: files differ: {fa} vs {fb}")
     size = 0
     for f in fa:
         with open(os.path.join(a, f), "rb") as x, \
                 open(os.path.join(b, f), "rb") as y:
             data = x.read()
-            _check(data == y.read(), f"{what}: {f} differs between devices")
+            check(data == y.read(), f"{what}: {f} differs between devices")
         size += len(data)
     return size
 
 
 def _run_cli_to(label: str, argv: list, path: str) -> float:
-    """``_run_cli`` with the command's stdout written to ``path``."""
+    """``run_cli`` with the command's stdout written to ``path``."""
     import contextlib
     from metakssd_tpu_torch import cli
     t = time.time()
     with open(path, "w") as f, contextlib.redirect_stdout(f):
         rc = cli.main(argv)
     dt = time.time() - t
-    _check(rc == 0, f"{label} failed: {argv}")
+    check(rc == 0, f"{label} failed: {argv}")
     print(f"  {label:36s} {dt:9.3f} s", flush=True)
     return dt
-
-
-def _set_leg(work: str, dev: str, co: str, taxf: str) -> str:
-    """set -g -> -q -> -i (the MarkerDB chain), then -u, -s and -c, on
-    ``dev``, in a dir of its own with outputs named relative to it (so
-    the names that -c records are the same on both devices)."""
-    wd = os.path.join(work, f"set_{dev}")
-    os.makedirs(wd)
-    here = os.getcwd()
-    os.chdir(wd)
-    try:
-        for verb, argv in (("-g", ["-g", taxf, "-o", "pan", co]),
-                           ("-q", ["-q", "-o", "uq", "pan"]),
-                           ("-i", ["-i", "uq", "-o", "mk", "pan"]),
-                           ("-u", ["-u", "-o", "u", co]),
-                           ("-s", ["-s", "uq", "-o", "s", co]),
-                           ("-c", ["-c", "-o", "c", "u", "uq"])):
-            _run_cli(f"set {verb} --device {dev}",
-                     ["set", *argv, "--device", dev])
-    finally:
-        os.chdir(here)
-    return wd
 
 
 def _real_chain(work: str, sres: dict) -> None:
@@ -801,25 +795,25 @@ def _real_chain(work: str, sres: dict) -> None:
         f.writelines(f"{1 + i // CHAIN_TAXON}\ttaxon{i // CHAIN_TAXON}\n"
                      for i in range(len(names)))
     qco = os.path.join(work, "chain_sample")
-    _run_cli("dist -A (200K reads)", ["dist", "-L", sres["shuf"], "-A", "-o",
+    run_cli("dist -A (200K reads)", ["dist", "-L", sres["shuf"], "-A", "-o",
                                       qco, "--device", "cuda",
                                       sres["subset"]])
     out = {}
     for dev in ("cuda", "cpu"):
         d = {k: os.path.join(work, f"chain_{dev}_{k}")
              for k in ("pan", "uq", "mk", "abv")}
-        _run_cli(f"chain set -g --device {dev}", [
+        run_cli(f"chain set -g --device {dev}", [
             "set", "-g", taxf, "-o", d["pan"], "--device", dev,
             sres["markerdb"]])
-        _run_cli(f"chain set -q --device {dev}", [
+        run_cli(f"chain set -q --device {dev}", [
             "set", "-q", "-o", d["uq"], "--device", dev, d["pan"]])
-        _run_cli(f"chain set -i --device {dev}", [
+        run_cli(f"chain set -i --device {dev}", [
             "set", "-i", d["uq"], "-o", d["mk"], "--device", dev, d["pan"]])
         d["tsv"] = os.path.join(work, f"chain_{dev}.tsv")
         _run_cli_to(f"chain composite -q --device {dev}", [
             "composite", "-r", d["mk"], "-q", qco, "--device", dev],
             d["tsv"])
-        _run_cli(f"chain composite -q -b --device {dev}", [
+        run_cli(f"chain composite -q -b --device {dev}", [
             "composite", "-r", d["mk"], "-q", qco, "-b", "-o", d["abv"],
             "--device", dev])
         out[dev] = d
@@ -828,7 +822,7 @@ def _real_chain(work: str, sres: dict) -> None:
     with open(out["cuda"]["tsv"], "rb") as a, \
             open(out["cpu"]["tsv"], "rb") as b:
         text = a.read()
-        _check(text == b.read() and text, "chain composite TSVs differ")
+        check(text == b.read() and text, "chain composite TSVs differ")
     reported = {ln.split("\t")[1] for ln in text.decode().splitlines()}
 
     def taxon_of(path):
@@ -837,10 +831,10 @@ def _real_chain(work: str, sres: dict) -> None:
     cov = sres["sub_coverage"]
     want = {taxon_of(p) for p, c in cov.items() if c >= 1}
     sampled = {taxon_of(p) for p in cov}
-    _check(want and want <= reported,
+    check(want and want <= reported,
            f"taxa with a genome of coverage >= 1x missing: "
            f"{sorted(want - reported)}")
-    _check(reported <= sampled,
+    check(reported <= sampled,
            f"unsampled taxa reported: {sorted(reported - sampled)}")
     print(f"  chain: {len(reported)} taxa reported, all sampled; the "
           f"{len(want)} taxa holding a genome of coverage >= 1x all "
@@ -861,24 +855,24 @@ def phase_set(work: str, seed: int, sres: dict) -> dict:
           f"in {time.time() - t:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     sketch_cuda.reset_launches()
-    wd = {"cuda": _set_leg(work, "cuda", co, taxf)}
+    wd = {"cuda": set_leg(work, "cuda", co, taxf)}
     launches = sketch_cuda.LAUNCHES["member"]
     peak = torch.cuda.max_memory_allocated()
     print(f"  set leg launches {dict(sketch_cuda.LAUNCHES)}; peak device "
           f"memory {peak / 2**20:.1f} MiB", flush=True)
-    _check(launches > 0, "K3 never launched in the set leg")
-    wd["cpu"] = _set_leg(work, "cpu", co, taxf)
+    check(launches > 0, "K3 never launched in the set leg")
+    wd["cpu"] = set_leg(work, "cpu", co, taxf)
     outs = sorted(os.listdir(wd["cuda"]))
-    _check(outs == sorted(os.listdir(wd["cpu"])) and len(outs) == 6,
+    check(outs == sorted(os.listdir(wd["cpu"])) and len(outs) == 6,
            f"set: output dirs {outs}")
     size = sum(_same_dirs(os.path.join(wd["cuda"], d),
                           os.path.join(wd["cpu"], d), f"set {d}")
                for d in outs)
     mk = os.path.join(wd["cuda"], "mk")
     st = CoStat.read(mk)
-    _check(st.infile_num == SET_TAXA and "0" not in st.names,
+    check(st.infile_num == SET_TAXA and "0" not in st.names,
            f"markers hold {st.infile_num} taxa")
-    _check(0.9 * SET_TAXA * SET_POOL < st.all_ctx_ct
+    check(0.9 * SET_TAXA * SET_POOL < st.all_ctx_ct
            <= SET_TAXA * (SET_POOL + 2 * SET_SHARED),
            f"markers hold {st.all_ctx_ct} ids")
     print(f"  set: 6 output dirs ({size} bytes) byte-identical between "
@@ -961,7 +955,7 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
     index_of = {n.encode(): i for i, n in enumerate(names)}
     print(f"  data: {len(names)} vectors over {len(names)} species dims, "
           f"{len(queries)} queries in {time.time() - t:.1f} s", flush=True)
-    _run_cli("composite -i", ["composite", "-r", refdir, "-i"])
+    run_cli("composite -i", ["composite", "-r", refdir, "-i"])
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -972,50 +966,50 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
           f"{time.time() - t:.3f} s", flush=True)
     nq = len(queries)
     cpu_q = queries[:ABV_CPU_QUERIES // 2] + queries[-ABV_CPU_QUERIES // 2:]
-    per256 = {}
+    secs = {}
     for mode in (0, 1, 2):
         txt = {}
         for route in ("cuda", "cpu"):
             txt[route] = os.path.join(work, f"abv_s{mode}_{route}.txt")
-            per256[f"s{mode} sparse {route}"] = _run_cli_to(
+            secs[f"s{mode} sparse {route}, {nq} queries"] = _run_cli_to(
                 f"composite -s {mode} --device {route}",
                 ["composite", "-r", refdir, "-s", str(mode), *queries,
-                 "--device", route], txt[route]) * 256 / nq
+                 "--device", route], txt[route])
         with open(txt["cuda"], "rb") as a, open(txt["cpu"], "rb") as b:
-            _check(a.read() == b.read(), f"-s {mode}: sparse text differs "
+            check(a.read() == b.read(), f"-s {mode}: sparse text differs "
                                          "between the routes")
         for route, qs in (("cuda", queries), ("cpu", cpu_q)):
             txt[f"dense_{route}"] = os.path.join(
                 work, f"abv_s{mode}_dense_{route}.txt")
-            per256[f"s{mode} dense {route}"] = _run_cli_to(
+            secs[f"s{mode} dense {route}, {len(qs)} queries"] = _run_cli_to(
                 f"composite -s {mode} --dense --device {route}",
                 ["composite", "-r", refdir, "-s", str(mode), "--dense", *qs,
-                 "--device", route], txt[f"dense_{route}"]) * 256 / len(qs)
+                 "--device", route], txt[f"dense_{route}"])
         sparse = _abv_blocks(txt["cuda"], index_of)
         dense_b = _abv_blocks(txt["dense_cuda"], index_of)
-        _check(len(sparse) == len(dense_b) == nq, f"-s {mode}: block count")
+        check(len(sparse) == len(dense_b) == nq, f"-s {mode}: block count")
         worst, selfs, residues = 0.0, 0, []
         for qi, ((hs, si, sv), (hd, di, dv)) in enumerate(zip(sparse,
                                                               dense_b)):
-            _check(hs == hd, f"-s {mode}: headers differ")
+            check(hs == hd, f"-s {mode}: headers differ")
             os_, od = np.argsort(si), np.argsort(di)
-            _check(np.array_equal(si[os_], di[od]),
+            check(np.array_equal(si[os_], di[od]),
                    f"-s {mode}: query {qi} overlap sets differ")
             sv, dv = sv[os_], dv[od]
-            check = np.ones(sv.size, bool)
+            held = np.ones(sv.size, bool)
             if mode == 2:
                 # a query equal to a DB vector: sparse 0, dense the sqrt of
                 # a rounding residue (ROADMAP.md section 3)
-                check = sv != 0.0
-                selfs += int((~check).sum())
-                residues += dv[~check].tolist()
-            if check.any():
-                worst = max(worst, float(np.abs(dv - sv)[check].max()))
+                held = sv != 0.0
+                selfs += int((~held).sum())
+                residues += dv[~held].tolist()
+            if held.any():
+                worst = max(worst, float(np.abs(dv - sv)[held].max()))
             if mode == 0 and qi < len(db_queries):
-                _check(di[0] == db_queries[qi],
+                check(di[0] == db_queries[qi],
                        f"query {qi}: top cosine hit {names[di[0]]} is not "
                        f"itself {names[db_queries[qi]]}")
-        _check(worst < DENSE_TOL, f"-s {mode}: dense vs sparse {worst}")
+        check(worst < DENSE_TOL, f"-s {mode}: dense vs sparse {worst}")
         cpu_b = _abv_blocks(txt["dense_cpu"], index_of)
         cuda_sub = dense_b[:ABV_CPU_QUERIES // 2] + \
             dense_b[-ABV_CPU_QUERIES // 2:]
@@ -1024,13 +1018,13 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
         cpu_worst = 0.0
         for (_, ci, cv), (_, gi, gv), me in zip(cpu_b, cuda_sub, self_ids):
             oc, og = np.argsort(ci), np.argsort(gi)
-            _check(np.array_equal(ci[oc], gi[og]),
+            check(np.array_equal(ci[oc], gi[og]),
                    f"-s {mode}: dense cpu and cuda sample sets differ")
-            check = ci[oc] != me if mode == 2 else np.ones(ci.size, bool)
-            if check.any():
+            held = ci[oc] != me if mode == 2 else np.ones(ci.size, bool)
+            if held.any():
                 cpu_worst = max(cpu_worst, float(np.abs(
-                    cv[oc] - gv[og])[check].max()))
-        _check(cpu_worst < DENSE_TOL, f"-s {mode}: dense cpu vs cuda "
+                    cv[oc] - gv[og])[held].max()))
+        check(cpu_worst < DENSE_TOL, f"-s {mode}: dense cpu vs cuda "
                                       f"{cpu_worst}")
         lines = sum(b[1].size for b in sparse)
         extra = ""
@@ -1046,9 +1040,9 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
               f"{extra}", flush=True)
     print(f"  peak device memory (abv leg) "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
-    print("  seconds per 256 queries: " + json.dumps(
-        {k: round(v, 4) for k, v in per256.items()}), flush=True)
-    return {"per256": per256}
+    print("  seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in secs.items()}), flush=True)
+    return {"seconds": secs}
 
 
 CUDA_TESTS = ["tests/test_torch_sketch_cuda.py",
@@ -1078,8 +1072,8 @@ def phase_probes() -> list:
     launches = dict(sketch_cuda.LAUNCHES)
     print(f"  probe path launches {launches}", flush=True)
     for kern in PROBE_KERNELS:
-        _check(launches[kern] > 0, f"{kern} never launched: {launches}")
-        _check(sum(r["launches"] for _, r in runs if r["kernel"] == kern)
+        check(launches[kern] > 0, f"{kern} never launched: {launches}")
+        check(sum(r["launches"] for _, r in runs if r["kernel"] == kern)
                == launches[kern], f"{kern}: launches not all attributed")
 
     out = []
@@ -1093,7 +1087,7 @@ def phase_probes() -> list:
         got, want = v.run(v.tiles), v.plain(v.tiles)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max().item())
-        _check(torch.equal(got, want), f"{pid} {v.name}: kernel != plain")
+        check(torch.equal(got, want), f"{pid} {v.name}: kernel != plain")
         plain_ms = _time_ms(lambda: v.plain(v.tiles), 2)
         # the card's time per dispatch: the path's K dispatches replayed
         # from a CUDA graph (the path's own time includes the host's)
@@ -1134,7 +1128,7 @@ def phase_cuda_tests() -> None:
         text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [proc.stderr[-500:]]
     print(f"  pytest -m cuda: {tail[0]}", flush=True)
-    _check(proc.returncode == 0, "cuda tests failed:\n" + proc.stdout[-4000:]
+    check(proc.returncode == 0, "cuda tests failed:\n" + proc.stdout[-4000:]
            + proc.stderr[-2000:])
 
 
@@ -1150,8 +1144,8 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from metakssd_tpu_torch.ops import _build, sketch_cuda
-    from metakssd_tpu_torch.probes._common import search_ops
+    from metakssd_tpu_torch.io import native
+    from metakssd_tpu_torch.ops import _build
 
     t0 = time.time()
     card = subprocess.run(
@@ -1161,6 +1155,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    card_int32_rate()
     _phase("card", t0)
 
     t0 = time.time()
@@ -1179,6 +1174,15 @@ def main(argv=None) -> int:
         mres = phase_member(args.seed)
         _phase("kernels", t0)
 
+        _k12_lines(kres)
+        t0 = time.time()
+        kind = native.build_kind()
+        print("host library (sequence parser, posting passes): "
+              + {"openmp": "native, OpenMP build",
+                 "serial": "native, serial build (the OpenMP compile "
+                           "failed here)",
+                 None: "none built: numpy routes"}[kind]
+              + f" ({time.time() - t0:.1f} s to build or find)", flush=True)
         t0 = time.time()
         sres = phase_slice(work, args.seed)
         _phase("slice", t0)
@@ -1207,16 +1211,7 @@ def main(argv=None) -> int:
 
     t = kres["times"]
     mt = mres["times"]
-    ks = kres["shape"]
-    # K1/K2 at the 64M-window L3K11 batch: the codes and both tables read
-    # once; K1 writes its survivors' drtuples and the counter, K2 a
-    # drtuple and a keep flag per window.  Operations: the window math
-    # and a lower bound of ceil(log2 n) steps per window.
-    win_ops = ks["nwin"] * search_ops((ks["n_accept"] - 1).bit_length())
-    tables = 8 * ks["n_accept"]
-    k1_bound = _bound(ks["n_codes"] + tables + 4 * ks["survivors"] + 8,
-                      win_ops)
-    k2_bound = _bound(ks["n_codes"] + tables + 8 * ks["nwin"], win_ops)
+    k1_bound, k2_bound = _k12_bounds(kres["shape"])
     # K3 at 4.19M x 1M, identity mode: haystack and needles read once, a
     # member flag and a value written per needle; a lower bound each
     ms_ = mres["shape"]

@@ -5,9 +5,13 @@ copy of ``metakssd_tpu/io/native.py``.
 The library builds on first use from the shared sources, with the flags
 of ``native/Makefile``, into ``metakssd_tpu_torch/_build/`` under a name
 of its own (a hash of the sources and flags), so the two packages never
-share one ``.so``.  When no compiler can build it, every caller takes its
-numpy route (``MKSSD_NO_NATIVE=1`` forces that).  Host code only: no
-device work hides behind it.
+share one ``.so``.  Where that compile fails (a g++ without libgomp
+refuses ``-fopenmp``) it is tried once more without ``-fopenmp``: the
+sources guard every OpenMP call with ``#ifdef _OPENMP``, so the serial
+build gives the same results on one thread.  ``build_kind()`` says which
+one loaded.  When no compiler can build it, every caller takes its numpy
+route (``MKSSD_NO_NATIVE=1`` forces that).  Host code only: no device
+work hides behind it.
 """
 
 from __future__ import annotations
@@ -26,12 +30,15 @@ _BUILD_DIR = os.path.join(_PKG, "_build")
 _CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
              "-fopenmp")
 
+_SERIAL_CXXFLAGS = tuple(f for f in _CXXFLAGS if f != "-fopenmp")
+
 _lib = None
 _tried = False
+_kind = None            # "openmp" or "serial" once a library has loaded
 
 
-def _library_path() -> str:
-    h = hashlib.sha256(" ".join(_CXXFLAGS).encode())
+def _library_path(flags=_CXXFLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sorted(glob.glob(os.path.join(_NATIVE_DIR, "*.cpp"))
                       + glob.glob(os.path.join(_NATIVE_DIR, "*.h"))):
         with open(src, "rb") as f:
@@ -39,9 +46,9 @@ def _library_path() -> str:
     return os.path.join(_BUILD_DIR, f"libfastseq_torch_{h.hexdigest()[:16]}.so")
 
 
-def _build() -> str | None:
-    """Path of the built library, or None when it cannot be built."""
-    so = _library_path()
+def _compile(flags) -> str | None:
+    """Path of the library built with ``flags``, or None on failure."""
+    so = _library_path(flags)
     if os.path.exists(so):
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -50,7 +57,7 @@ def _build() -> str | None:
             for f in ("fastseq.cpp", "sketch_cpu.cpp", "postings.cpp")]
     cxx = os.environ.get("CXX", "g++")
     try:
-        subprocess.run([cxx, *_CXXFLAGS, "-shared", *srcs, "-o", tmp, "-lz"],
+        subprocess.run([cxx, *flags, "-shared", *srcs, "-o", tmp, "-lz"],
                        check=True, capture_output=True)
         os.replace(tmp, so)       # atomic: a concurrent builder's twin wins
     except (subprocess.CalledProcessError, FileNotFoundError, OSError):
@@ -58,6 +65,32 @@ def _build() -> str | None:
             os.remove(tmp)
         return None
     return so
+
+
+def _build() -> str | None:
+    """Path of the built library, or None when it cannot be built: a
+    library that an earlier process built (either kind) before any
+    compile, then the Makefile's flags, then the same without
+    ``-fopenmp``."""
+    global _kind
+    builds = (("openmp", _CXXFLAGS), ("serial", _SERIAL_CXXFLAGS))
+    for kind, flags in builds:
+        if os.path.exists(_library_path(flags)):
+            _kind = kind
+            return _library_path(flags)
+    for kind, flags in builds:
+        so = _compile(flags)
+        if so is not None:
+            _kind = kind
+            return so
+    _kind = None
+    return None
+
+
+def build_kind() -> str | None:
+    """"openmp" or "serial" for the library that loaded, None when the
+    numpy routes run."""
+    return _kind if _load() is not None else None
 
 
 def _load():

@@ -29,13 +29,13 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    # codes, n_codes, nwin, accept, pfil, n_accept, k, subk, drlevel,
-    # out_dr, out_pos, counter, capacity, stream
-    "mkssd_sketch_compact": [_P, _LL, _LL, _P, _P, _I, _I, _I, _I,
+    # codes, n_codes, nwin, accept, pfil, n_accept, filter, filter_log2,
+    # k, subk, drlevel, out_dr, out_pos, counter, capacity, stream
+    "mkssd_sketch_compact": [_P, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _I,
                              _P, _P, _P, _LL, _P],
-    # codes, n_codes, nwin, accept, pfil, n_accept, k, subk, drlevel,
-    # out_dr, out_keep, stream
-    "mkssd_sketch_full": [_P, _LL, _LL, _P, _P, _I, _I, _I, _I,
+    # codes, n_codes, nwin, accept, pfil, n_accept, filter, filter_log2,
+    # k, subk, drlevel, out_dr, out_keep, stream
+    "mkssd_sketch_full": [_P, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _I,
                           _P, _P, _P],
     # hay, nh, values (NULL = identity), needles, nn, out_member,
     # out_value, stream

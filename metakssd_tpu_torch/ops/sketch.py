@@ -2,7 +2,7 @@
 ``metakssd_tpu/ops/sketch_xla.py:302-472``.
 
 Every config with k - drlevel <= 8 (32-bit drtuples) and an accept table
-that fits the kernels' shared memory runs the K1/K2 chunk loop
+of at most MAX_ACCEPT entries runs the K1/K2 chunk loop
 (``sketch_cuda.sketch_windows``): the CUDA kernels on a CUDA device,
 their plain PyTorch versions on the CPU.  Wider configs, or larger
 tables, go through the numpy model ``ops/golden.py`` (copied from
@@ -17,8 +17,9 @@ from metakssd_tpu_torch.ops import golden, sketch_cuda
 from metakssd_tpu_torch.ops.golden import sets_from_drtuples
 from metakssd_tpu_torch.state import AcceptTables, accept_tables
 
-# Largest accept table the kernels stage in shared memory: 2 x 64 KiB
-# (the Pallas kernel's bound too, sketch_pallas.py:665).
+# Largest accept table of the kernel path (the Pallas kernel's bound too,
+# sketch_pallas.py:665): the kernels' largest filter bitmap (2^19 bits,
+# 64 KiB of a block's shared memory) still gives it 32 bits an entry.
 MAX_ACCEPT = 1 << 14
 
 

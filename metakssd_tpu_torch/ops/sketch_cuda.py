@@ -8,6 +8,11 @@ Each wrapper runs its plain PyTorch version when the codes tensor lies on
 the CPU, launches its kernel when it lies on a CUDA device, and raises on
 anything else; there is no fallback from a failed launch.
 
+The kernels test one bit of ``tables.filter`` per window and search the
+accept table exactly only where it is set (``ops/sketch_filter.py``).
+``window_filtered_plain`` is that formulation in plain torch, beside the
+plain versions, which search every window; the tests hold the two equal.
+
 Tensor contract (both versions):
 
 * ``codes``: uint8 [n], 0..3 = ACGT, >= 4 = invalid; the window count is
@@ -27,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from metakssd_tpu_torch.ops import sketch_filter
 from metakssd_tpu_torch.state import AcceptTables
 
 # Launches of each kernel of csrc/ (not of its plain version): K1, K2, K3
@@ -63,15 +69,17 @@ def _as_u32_bits(x: torch.Tensor) -> torch.Tensor:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _window_math(codes: torch.Tensor, tables: AcceptTables, p):
-    """(drtuple int64 [nwin], keep bool [nwin]) for every window, in
-    int64: k <= 15 on the device path, so a 4k-bit tuple fits."""
+def _window_tuples(codes: torch.Tensor, p):
+    """(canonical tuple int64 [nwin], inner substring dim int64 [nwin],
+    all-bases-valid bool [nwin]) for every window, in int64: k <= 15 on
+    the device path, so a 4k-bit tuple fits.  An invalid code counts as
+    its low two bits, as in the kernels' scan; its windows are not valid,
+    so no output depends on that."""
     TL = p.kmer_len
-    oc2 = 2 * p.outctx
     nwin = codes.numel() - TL + 1
     c = codes.to(torch.int64)
     bad = c > 3
-    c = c.masked_fill(bad, 0)
+    c = c & 3
     fwd = torch.zeros(nwin, dtype=torch.int64, device=codes.device)
     rc = torch.zeros_like(fwd)
     for j in range(TL):
@@ -83,7 +91,14 @@ def _window_math(codes: torch.Tensor, tables: AcceptTables, p):
     nbad[1:] = torch.cumsum(bad.to(torch.int64), 0)
     ok = nbad[TL:TL + nwin] == nbad[:nwin]
     uni = torch.minimum(fwd, rc)            # forward on a tie
-    dim = (uni >> oc2) & ((1 << (4 * p.subk)) - 1)
+    dim = (uni >> (2 * p.outctx)) & ((1 << (4 * p.subk)) - 1)
+    return uni, dim, ok
+
+
+def _search(uni: torch.Tensor, dim: torch.Tensor, tables: AcceptTables, p):
+    """The exact search of each dim and the drtuple it gives:
+    (drtuple int64, hit bool), elementwise over ``uni`` and ``dim``."""
+    oc2 = 2 * p.outctx
     acc = tables.accept.to(torch.int64)
     pos = torch.searchsorted(acc, dim).clamp_(max=acc.numel() - 1)
     hit = acc[pos] == dim
@@ -92,7 +107,46 @@ def _window_math(codes: torch.Tensor, tables: AcceptTables, p):
     right = uni & omask
     dr = (((top << oc2) | right) << (4 * (p.subk - p.drlevel))) \
         + tables.pfilter.to(torch.int64)[pos]
+    return dr, hit
+
+
+def _window_math(codes: torch.Tensor, tables: AcceptTables, p):
+    """(drtuple int64 [nwin], keep bool [nwin]) for every window: the
+    exact search runs on every window."""
+    uni, dim, ok = _window_tuples(codes, p)
+    dr, hit = _search(uni, dim, tables, p)
     return dr, ok & hit
+
+
+def filter_candidates(codes: torch.Tensor, tables: AcceptTables, p):
+    """Indices (int64, ascending) of the windows that K1 and K2 hand to
+    their verify phase: the filter bit of the window's dim is set.
+    Validity is checked there, so a window that holds an invalid code
+    may be among them.  Returns (candidates, their tuples, their dims,
+    whether each is valid)."""
+    uni, dim, ok = _window_tuples(codes, p)
+    passed = sketch_filter.bits_set(
+        tables.filter, sketch_filter.filter_index(dim, tables.filter_log2,
+                                                  p.subk))
+    cand = torch.nonzero(passed).flatten()
+    return cand, uni[cand], dim[cand], ok[cand]
+
+
+def window_filtered_plain(codes: torch.Tensor, tables: AcceptTables, p):
+    """K2's result by the kernels' formulation, in plain torch: one
+    filter bit per window, then validity and the exact search on the
+    candidates only.  Equal to ``window_full_plain`` on every input (the
+    filter has no false negative); the tests hold the two together."""
+    nwin = _nwin(codes, p)
+    cand, uni, dim, ok = filter_candidates(codes, tables, p)
+    dr, hit = _search(uni, dim, tables, p)
+    hit &= ok
+    out_dr = torch.full((nwin,), DROPPED, dtype=torch.int64,
+                        device=codes.device)
+    out_dr[cand[hit]] = dr[hit]
+    keep = torch.zeros(nwin, dtype=torch.int32, device=codes.device)
+    keep[cand[hit]] = 1
+    return _as_u32_bits(out_dr), keep
 
 
 def window_full_plain(codes: torch.Tensor, tables: AcceptTables, p):
@@ -127,16 +181,20 @@ def window_compact_plain(codes: torch.Tensor, tables: AcceptTables, p,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda(codes: torch.Tensor, tables: AcceptTables) -> None:
+def _check_cuda(codes: torch.Tensor, tables: AcceptTables, p) -> None:
     if codes.dtype != torch.uint8 or not codes.is_contiguous():
         raise ValueError("codes must be a contiguous uint8 tensor")
-    for t in (tables.accept, tables.pfilter):
+    for t in (tables.accept, tables.pfilter, tables.filter):
         if t.device != codes.device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise ValueError("accept tables must be contiguous int32 on "
                              "the codes' device")
     if tables.size < 1:
         raise ValueError("empty accept table")
+    sketch_filter.check_log2(tables.filter_log2, p.subk)
+    if tables.filter.numel() != sketch_filter.n_words(tables.filter_log2):
+        raise ValueError(f"filter of {tables.filter.numel()} words for "
+                         f"2^{tables.filter_log2} bits")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -152,7 +210,7 @@ def window_compact(codes: torch.Tensor, tables: AcceptTables, p,
     if codes.device.type != "cuda":
         raise ValueError(f"no sketch kernel for device {codes.device}")
     nwin = _nwin(codes, p)
-    _check_cuda(codes, tables)
+    _check_cuda(codes, tables, p)
     from metakssd_tpu_torch.ops import _build
     lib = _build.library()
     out_dr = torch.empty(capacity, dtype=torch.int32, device=codes.device)
@@ -162,7 +220,8 @@ def window_compact(codes: torch.Tensor, tables: AcceptTables, p,
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     err = lib.mkssd_sketch_compact(
         codes.data_ptr(), codes.numel(), nwin, tables.accept.data_ptr(),
-        tables.pfilter.data_ptr(), tables.size, p.k, p.subk, p.drlevel,
+        tables.pfilter.data_ptr(), tables.size, tables.filter.data_ptr(),
+        tables.filter_log2, p.k, p.subk, p.drlevel,
         out_dr.data_ptr(), out_pos.data_ptr() if want_pos else None,
         count.data_ptr(), capacity, stream)
     _raise_on(err, "mkssd_sketch_compact")
@@ -177,7 +236,7 @@ def window_full(codes: torch.Tensor, tables: AcceptTables, p):
     if codes.device.type != "cuda":
         raise ValueError(f"no sketch kernel for device {codes.device}")
     nwin = _nwin(codes, p)
-    _check_cuda(codes, tables)
+    _check_cuda(codes, tables, p)
     from metakssd_tpu_torch.ops import _build
     lib = _build.library()
     out_dr = torch.empty(nwin, dtype=torch.int32, device=codes.device)
@@ -185,7 +244,8 @@ def window_full(codes: torch.Tensor, tables: AcceptTables, p):
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     err = lib.mkssd_sketch_full(
         codes.data_ptr(), codes.numel(), nwin, tables.accept.data_ptr(),
-        tables.pfilter.data_ptr(), tables.size, p.k, p.subk, p.drlevel,
+        tables.pfilter.data_ptr(), tables.size, tables.filter.data_ptr(),
+        tables.filter_log2, p.k, p.subk, p.drlevel,
         out_dr.data_ptr(), out_keep.data_ptr(), stream)
     _raise_on(err, "mkssd_sketch_full")
     LAUNCHES["sketch_full"] += 1

@@ -47,8 +47,8 @@ def out_bytes(nb: int) -> int:
     return nb * LANES * 4
 
 
-# 32-bit operations per window, counted on the cheapest formulation the
-# kernels use (64-bit rolling tuples, as csrc/sketch.cu rolls them): the
+# 32-bit operations per window of the probe kernels (csrc/probe.cu),
+# counted on the cheapest formulation they use (64-bit rolling tuples): the
 # new base's and, compare and select; the forward tuple's shift, or and
 # mask and the reverse complement's shift, xor, shift and or, on 32-bit
 # halves; the 64-bit min; the result's xor, or and add.
@@ -61,6 +61,25 @@ def search_ops(steps: int, extra: int = 0) -> int:
     """32-bit operations per window of the window math and a search of
     ``steps`` dependent steps, plus ``extra``."""
     return WINDOW_OPS + SEARCH_OPS + STEP_OPS * steps + extra
+
+
+# K1 and K2 (csrc/sketch.cu) per window, on packed codes: two funnel
+# shifts each for the forward and the reverse-complement tuple, the
+# forward tuple's 64-bit cut (2) and the other's mask (2), the 64-bit min
+# (4), dim's shift and mask (2), the fold's multiply and shift, the word's
+# index, load, shift and mask and the queue mask's shift and or (8); the
+# packing of a thread's 48 codes, shared by its 16 windows, is left out.
+SCAN_OPS = 24
+
+
+def filter_ops(nwin: int, kept: int, steps: int) -> int:
+    """32-bit operations that K1's or K2's function needs on ``nwin``
+    windows of which ``kept`` are kept: the scan per window, and per kept
+    window one exact search of ``steps`` steps and the drtuple.  What the
+    kernels spend on filter candidates that the search rejects (a cost of
+    the folded bitmap, not of the function), and on rebuilding a
+    candidate's tuple, is left out of the bound."""
+    return nwin * SCAN_OPS + kept * (SEARCH_OPS + STEP_OPS * steps)
 
 
 def vary(t: torch.Tensor, k: int = K) -> list[torch.Tensor]:

@@ -16,8 +16,9 @@ from metakssd_tpu_torch.formats.shuf import make_shuf
 from metakssd_tpu_torch.ops import probe, sketch_cuda
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.probes._common import (NWIN, WINDOW_OPS, Variant,
-                                               cuda_device, out_bytes,
-                                               run_all, search_ops)
+                                               cuda_device, filter_ops,
+                                               out_bytes, run_all,
+                                               search_ops)
 from metakssd_tpu_torch.state import accept_tables
 
 RWIN = 256
@@ -55,6 +56,9 @@ def variants(device, nwin: int = NWIN, seed: int = 0,
     k = (p.k, p.subk, p.drlevel)
     cap = sketch_cuda.default_capacity(nwin, tabs)
     survivors = nwin * n // p.shuf_len
+    # K1/K2: the scan per window, the exact search per kept window
+    k12_bytes = c.numel() + 8 * n + 4 * tabs.filter.numel()
+    k12_ops = filter_ops(nwin, survivors, steps)
     return [
         Variant("floor (read+sum)", f"{SRC}:71", "probe_floor", tiles,
                 lambda t: probe.floor(t, 0, rows),
@@ -85,13 +89,11 @@ def variants(device, nwin: int = NWIN, seed: int = 0,
         Variant("full kernel K1 (compact)", "metakssd_tpu/ops/"
                 "sketch_pallas.py:323", "sketch_compact", c,
                 lambda x: sketch_cuda.window_compact(x, tabs, p, cap)[2],
-                None, c.numel() + 8 * n + 4 * survivors + 8,
-                nwin * search_ops(steps), nwin),
+                None, k12_bytes + 4 * survivors + 8, k12_ops, nwin),
         Variant("full kernel K2 (all windows)", "metakssd_tpu/ops/"
                 "sketch_pallas.py:298", "sketch_full", c,
                 lambda x: sketch_cuda.window_full(x, tabs, p)[1],
-                None, c.numel() + 8 * n + 8 * nwin,
-                nwin * search_ops(steps), nwin),
+                None, k12_bytes + 8 * nwin, k12_ops, nwin),
     ]
 
 

@@ -37,21 +37,38 @@ class AcceptTables:
     accept: torch.Tensor        # int32 [n], ascending
     pfilter: torch.Tensor       # int32 [n]
     shuf_len: int               # 16**subk, the substring space
+    filter: torch.Tensor        # int32 [words]: the kernels' filter bitmap
+    filter_log2: int            # log2 of its bits (ops/sketch_filter.py)
 
     @property
     def size(self) -> int:
         return int(self.accept.numel())
 
 
-def accept_tables(shuf, device) -> AcceptTables:
+def make_accept_tables(accept: np.ndarray, pfilter: np.ndarray, subk: int,
+                       device, filter_log2: int | None = None
+                       ) -> AcceptTables:
+    """Tables and their filter bitmap from a sorted uint32 accept array
+    and its aligned pfilters.  ``filter_log2`` overrides the bitmap's
+    default size (``sketch_filter.default_log2``)."""
+    from metakssd_tpu_torch.ops import sketch_filter
     dev = resolve_device(device)
-    tups, pf = shuf.device_tables()[:2]
+    acc = torch.from_numpy(np.asarray(accept, np.uint32)
+                           .astype(np.int32)).to(dev)
+    if filter_log2 is None:
+        filter_log2 = sketch_filter.default_log2(int(acc.numel()), subk)
     return AcceptTables(
-        accept=torch.from_numpy(np.asarray(tups, np.uint32)
-                                .astype(np.int32)).to(dev),
-        pfilter=torch.from_numpy(np.asarray(pf, np.uint32)
+        accept=acc,
+        pfilter=torch.from_numpy(np.asarray(pfilter, np.uint32)
                                  .astype(np.int32)).to(dev),
-        shuf_len=shuf.params.shuf_len)
+        shuf_len=1 << (4 * subk),
+        filter=sketch_filter.build_filter(acc, subk, filter_log2),
+        filter_log2=filter_log2)
+
+
+def accept_tables(shuf, device) -> AcceptTables:
+    tups, pf = shuf.device_tables()[:2]
+    return make_accept_tables(tups, pf, shuf.params.subk, device)
 
 
 def profile_index_from_staged(comp_idx: list, nref: int, device):

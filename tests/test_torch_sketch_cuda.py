@@ -12,12 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from metakssd_tpu_torch.ops import golden, sketch, sketch_cuda
+from metakssd_tpu_torch.ops import golden, sketch, sketch_cuda, sketch_filter
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.state import accept_tables
 
 from sketch_cases import CONFIGS, assert_pairs_equal, pairs, \
-    random_codes, zero_accepted
+    random_codes, sized_tables, synthetic_tables, zero_accepted
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +74,137 @@ def test_chunk_loop_matches_golden(cuda, cfg):
     assert pos.dtype == np.int64
     gdr, gpos = golden.window_drtuples(codes, shuf, return_positions=True)
     assert_pairs_equal(pairs(dr, pos), pairs(gdr, gpos))
+
+
+def _assert_k1_k2_match_plain(c, tabs, p, cap, want_pos=True):
+    """K1 at ``cap`` (with or without positions) and K2 on CUDA codes
+    ``c`` against their plain versions; returns the kept count."""
+    dr, pos, n = sketch_cuda.window_compact(c, tabs, p, cap, want_pos)
+    pdr, ppos, pn = sketch_cuda.window_compact_plain(c, tabs, p, cap, True)
+    torch.cuda.synchronize()
+    m = int(n.item())
+    assert m == int(pn.item())
+    assert (pos is None) == (not want_pos)
+    w = min(m, cap)
+    if want_pos and m <= cap:
+        assert_pairs_equal(pairs(_u32(dr[:w]), pos[:w].cpu().numpy()),
+                           pairs(_u32(pdr[:w]), ppos[:w].cpu().numpy()))
+    elif m <= cap:
+        np.testing.assert_array_equal(np.sort(_u32(dr[:w])),
+                                      np.sort(_u32(pdr[:w])))
+    else:
+        # past the capacity K1 keeps some `cap` of the survivors
+        kept = _u32(sketch_cuda.window_full_plain(c, tabs, p)[0])
+        if want_pos:
+            at = pos[:w].cpu().numpy()
+            assert np.unique(at).size == w
+            np.testing.assert_array_equal(_u32(dr[:w]), kept[at])
+    fdr, fk = sketch_cuda.window_full(c, tabs, p)
+    gdr, gk = sketch_cuda.window_full_plain(c, tabs, p)
+    assert torch.equal(fdr, gdr) and torch.equal(fk, gk)
+    assert int(fk.sum().item()) == m
+    return m
+
+
+# (config, log2 of the filter bitmap or None for the default): direct
+# and folded bitmaps, the largest one (2^19 bits, two blocks to an SM), a
+# fold so small that one window in four passes it, and no outer context
+FILTERS = [((11, 6, 3), None), ((11, 6, 3), 12), ((11, 6, 3), 19),
+           ((8, 5, 2), None), ((8, 5, 2), 19), ((7, 5, 3), 14),
+           ((6, 4, 2), None), ((6, 4, 2), 10),
+           ((5, 5, 2), 18)]
+
+
+@pytest.mark.parametrize("cfg,log2", FILTERS)
+@pytest.mark.parametrize("want_pos", [True, False])
+def test_filter_sizes_match_plain(cuda, cfg, log2, want_pos):
+    p = SketchParams(*cfg)
+    tabs = sized_tables(zero_accepted(p, seed=5), cuda, log2)
+    codes = random_codes(seed=6, n=300_000, n_invalid=300)
+    codes[5000:5400] = 0
+    c = torch.from_numpy(codes).to(cuda)
+    m = _assert_k1_k2_match_plain(c, tabs, p, 1 << 16, want_pos)
+    assert m >= 400 - p.kmer_len + 1
+
+
+@pytest.mark.parametrize("cfg,log2", [((11, 6, 3), None), ((8, 5, 2), 16),
+                                      ((5, 5, 2), 12)])
+def test_false_positives_cost_no_output(cuda, cfg, log2):
+    """A stream whose every 2k-th window passes the filter and is not
+    accepted: the candidates are many, the output is the plain one."""
+    p = SketchParams(*cfg)
+    tabs = sized_tables(zero_accepted(p, seed=7), cuda, log2)
+    dims = sketch_filter.false_positive_dims(
+        tabs.accept, tabs.filter, tabs.filter_log2, p.subk, 1 << 21, 8)
+    codes, kept = sketch_filter.codes_with_dims(dims[:20_000], p, 9)
+    assert kept.size > 2000
+    c = torch.from_numpy(codes).to(cuda)
+    cand = sketch_cuda.filter_candidates(c, tabs, p)[0]
+    m = _assert_k1_k2_match_plain(c, tabs, p, 1 << 16)
+    assert cand.numel() >= kept.size + m and cand.numel() > 4 * m
+
+
+@pytest.mark.parametrize("n,log2", [(4096, None), (16_000, None),
+                                    (4096, 13)])
+def test_subk7_tables(cuda, n, log2):
+    """Tables of subk = 7 made directly (no shuffle file gives more than
+    4096 entries; the kernels take any sorted table): 16,000 dims fold to
+    the largest bitmap, 2^19 bits.  The stream holds
+    hits, false positives, invalid bases and a poly-A run."""
+    p = SketchParams(9, 7, 4)
+    tabs = synthetic_tables(p, n, seed=10, device=cuda, filter_log2=log2)
+    if n == 16_000:
+        assert tabs.filter_log2 == 19 and tabs.filter.numel() == 1 << 14
+    rng = np.random.default_rng(11)
+    acc = _u32(tabs.accept).astype(np.int64)
+    hits, _ = sketch_filter.codes_with_dims(rng.choice(acc, 5000), p, 12)
+    fps, kept = sketch_filter.codes_with_dims(
+        sketch_filter.false_positive_dims(
+            tabs.accept, tabs.filter, tabs.filter_log2, 7, 1 << 20,
+            13)[:5000], p, 14)
+    codes = np.concatenate([random_codes(15, 400_000, 400), hits, fps])
+    codes[9000:9100] = 0
+    c = torch.from_numpy(codes).to(cuda)
+    m = _assert_k1_k2_match_plain(c, tabs, p, 1 << 16)
+    assert m > 2000 and kept.size > 1000
+
+
+@pytest.mark.parametrize("cfg,log2", [((11, 6, 3), None), ((8, 5, 2), 19)])
+@pytest.mark.parametrize("nwin", [1, 15, 4095, 4096, 4097, 8192, 8193,
+                                  3 * 8192 + 1])
+def test_tile_edges(cuda, cfg, log2, nwin):
+    """Streams of one window, one tile (4096 windows) less one, one tile,
+    one tile and one window more, and several tiles, all of them kept."""
+    p = SketchParams(*cfg)
+    tabs = sized_tables(zero_accepted(p, seed=13), cuda, log2)
+    c = torch.zeros(nwin + p.kmer_len - 1, dtype=torch.uint8, device=cuda)
+    assert _assert_k1_k2_match_plain(c, tabs, p, nwin) == nwin
+    rc = torch.from_numpy(random_codes(14, nwin + p.kmer_len - 1,
+                                       nwin // 500)).to(cuda)
+    _assert_k1_k2_match_plain(rc, tabs, p, nwin)
+
+
+@pytest.mark.parametrize("cfg", [(11, 6, 3), (8, 5, 2)])
+def test_all_kept_at_a_capacity_between(cuda, cfg):
+    """Every window kept over several tiles, at a capacity between one
+    tile's survivors and all of them: the count runs on, the slots that
+    exist hold distinct windows' drtuples, nothing is written past them."""
+    p = SketchParams(*cfg)
+    tabs = accept_tables(zero_accepted(p, seed=15), cuda)
+    nwin, cap = 100_000, 30_000
+    c = torch.zeros(nwin + p.kmer_len - 1, dtype=torch.uint8, device=cuda)
+    assert _assert_k1_k2_match_plain(c, tabs, p, cap) == nwin
+    d, _ = sketch_cuda.sketch_windows(c.cpu().numpy(), p, tabs, capacity=cap)
+    assert d.size == nwin and not d.any()
+
+
+def test_codes_at_an_odd_address(cuda):
+    """A code tensor that does not start on a 16-byte boundary takes the
+    bytewise staging."""
+    p = SketchParams(11, 6, 3)
+    tabs = accept_tables(zero_accepted(p, seed=16), cuda)
+    codes = random_codes(seed=17, n=200_001, n_invalid=100)
+    codes[3000:3500] = 0
+    c = torch.from_numpy(codes).to(cuda)[1:]
+    assert c.data_ptr() % 16 != 0 and c.is_contiguous()
+    _assert_k1_k2_match_plain(c, tabs, p, 1 << 16)
