@@ -25,14 +25,22 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    (timed beside a random stream), and 2^20 windows all kept at a
    capacity between one tile's survivors and all of them.  K1's and K2's
    times are printed beside those of the kernels that searched every
-   window, and their bounds.  Then K3 (membership) against its plain
-   version, in identity and values mode: about 4.19M distinct random
-   u32 keys (>= 2^31 included) and 1M sorted needles, half hits, with
-   duplicates; a clustered haystack whose needle blocks span more than
-   the staged window; 1, 100, 2047 and 0 needles; an empty haystack;
-   0xFFFFFFFF present and absent.
-   Prints each kernel's time beside its plain version's (CUDA events,
-   after a warm-up);
+   window, and their bounds.  Then K3 (membership) and its index build
+   against their plain versions, in identity and values mode: edge cases
+   (a clustered haystack whose first bucket holds 100K keys and whose
+   needle blocks span more than the staged window; unsorted needles; 1,
+   100, 2047 and 0 needles; an empty and a 15-key haystack, which have
+   no index table; 0xFFFFFFFF present and absent), then the three shapes
+   of ``probes/bench_member.py``: ``4M x 1M`` (1M sorted needles against
+   about 4.19M distinct random u32 keys, half hits), ``dist batch`` (128
+   sorted runs of 4096 needles against the same keys: one component of
+   ``dist -r``) and ``set -s`` (65,600 sorted runs of 1,024 ids, 94%
+   hits, against 19.7M keys: the set leg's ``-s`` call).  At each shape
+   K3 must also equal the indexed formulation in plain torch and the
+   index kernel ``build_index_plain``; prints K3's time (replayed from a
+   CUDA graph, and between CUDA events over back-to-back calls) beside
+   its plain version's, ``torch.searchsorted``'s and its bound, and the
+   index build's likewise (CUDA events, after a warm-up);
 4. slice: 1024 synthetic 1 Mbp genomes -> MarkerDB with the port's
    ``dist`` (L3K11), a 4M x 150 bp fastq sampled from 32 of them with
    skewed abundance, 0.1% N and a block of poly-A reads, then the port's
@@ -47,17 +55,21 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    of distinct references at each of 0.1, 0.5, 1, 2, 5 and 10%, and 32
    unrelated ones).  ``dist -r`` runs on the card (launch counts zeroed
    before it: K3 must run), with ``--device cpu``, against the stage-II
-   mco dir (``--component_sz 6``) and with ``--shard-db 1``.  The four
-   distance.out files must be byte-identical, every substituted query's
-   best reference by Jaccard must be its source, the median Jaccard
-   must fall strictly with the rate, and no unrelated query may reach
-   Jaccard 0.01;
+   mco dir (``--component_sz 6``) and with ``--shard-db 1``.  On the
+   card K3 and its index build must launch once per component (not once
+   per query); the real haystack and needle counts of those calls are
+   printed.  The four distance.out files must be byte-identical, every
+   substituted query's best reference by Jaccard must be its source, the
+   median Jaccard must fall strictly with the rate, and no unrelated
+   query may reach Jaccard 0.01;
 6. set: a synthetic L3K11 sketch dir at a MarkerDB build's scale (65,536
    genomes in 16,384 taxa of 4, about 1,024 ids each, 67M ids in all,
    and 64 genomes of taxid 0) goes through ``set -g`` -> ``-q`` -> ``-i``,
    then ``-u``, ``-s`` and ``-c``, with ``--device cuda`` (launch counts
-   zeroed before it: K3 must run) and with ``--device cpu``; every output
-   dir must be byte-identical between the two.  Then the real chain on
+   zeroed before it: K3 and its index build must run; the haystack and
+   needle counts of the ``-i`` and ``-s`` calls are printed) and with
+   ``--device cpu``; every output dir must be byte-identical between the
+   two.  Then the real chain on
    phase 4's genomes (taxa of 4 consecutive genomes): ``set -g/-q/-i``,
    ``dist -A`` of the first 200K reads and ``composite -q`` and ``-q -b``
    on both devices; TSVs and ``.abv`` files byte-identical, and every
@@ -85,11 +97,13 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
 
 The line before the last is the kernels' JSON record, with the launch
 counts of the ``profile`` leg (K1, K2), of the ``dist -r --device cuda``
-and ``set --device cuda`` legs (K3) and of the probe path (P1-P4, one
-entry per variant), and each kernel's bound: the larger of its bytes over
+and ``set --device cuda`` legs (K3 and its index build) and of the probe
+path (P1-P4, one entry per variant), and each kernel's bound (K3's and
+the index build's also per shape): the larger of its bytes over
 3.35 TB/s and its 32-bit operations over the card's int32 rate (SMs x 64
 lanes x the largest SM clock, printed in phase 1), counted from this
-run's inputs (for K1 and K2, this run's kept windows).  The last line
+run's inputs (for K1 and K2, this run's kept windows; for K3, the
+bucket of each needle in this run's index).  The last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  All data is made from --seed with numpy under
 ``.smoke_work/`` and removed at the end.
@@ -122,9 +136,7 @@ FILTER_WINDOWS = 4 << 20          # windows of each extra filter check
 K1_MS_BEFORE = 1.3424             # K1 and K2 per 64M-window L3K11 batch when
 K2_MS_BEFORE = 1.8297             # they searched every window (PERF.md table)
 ALL_ONES = 0xFFFFFFFF
-MEMBER_HAY = 1 << 22              # K3 haystack draw (about 4.19M distinct)
-MEMBER_NEEDLES = 1 << 20          # K3 needles, half of them hits
-QUERY_KMERS = 4096                # K3 needles of one K8S5L2 genome query
+MEMBER_HAY = 1 << 22              # K3 edge cases' haystack draw (4.19M)
 K8S5L2 = (8, 5, 2)                # the prokaryote default of dist search
 RATES = (0.001, 0.005, 0.01, 0.02, 0.05, 0.10)   # query substitution rates
 N_PER_RATE = 16                   # mutated queries per rate
@@ -170,21 +182,6 @@ def _bound(nbytes: int, ops: int) -> tuple[float, str]:
 
 def _phase(name: str, t0: float) -> None:
     print(f"phase {name}: {time.time() - t0:.3f} s", flush=True)
-
-
-def _time_ms(fn, reps: int) -> float:
-    import torch
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def _u32(t):
@@ -256,6 +253,7 @@ def _filter_cases(work: str, seed: int, res: dict) -> None:
     import torch
     from metakssd_tpu_torch.ops import sketch_cuda, sketch_filter
     from metakssd_tpu_torch.params import SketchParams
+    from metakssd_tpu_torch.probes.bench_member import time_ms
     from metakssd_tpu_torch.profile_e2e import read_shuf
     from metakssd_tpu_torch.state import accept_tables, make_accept_tables
 
@@ -327,8 +325,8 @@ def _filter_cases(work: str, seed: int, res: dict) -> None:
            f"false-positive stream: {ncand} candidates, {m} kept")
     r = torch.from_numpy(codes[:FILTER_WINDOWS + p.kmer_len - 1]).to(dev)
     cap = sketch_cuda.default_capacity(FILTER_WINDOWS, tabs)
-    t_fp = _time_ms(lambda: sketch_cuda.window_compact(c, tabs, p, cap), 10)
-    t_rand = _time_ms(lambda: sketch_cuda.window_compact(r, tabs, p, cap), 10)
+    t_fp = time_ms(lambda: sketch_cuda.window_compact(c, tabs, p, cap), 10)
+    t_rand = time_ms(lambda: sketch_cuda.window_compact(r, tabs, p, cap), 10)
     rcand = sketch_cuda.filter_candidates(r, tabs, p)[0].numel()
     print(f"  false positives, {L3K11}: {ncand} candidates, {m} kept of "
           f"{FILTER_WINDOWS} windows == plain; K1 {t_fp:.4f} ms against "
@@ -387,6 +385,7 @@ def phase_kernels(work: str, seed: int) -> dict:
     import torch
     from metakssd_tpu_torch.ops import sketch_cuda
     from metakssd_tpu_torch.ops.sketch import golden
+    from metakssd_tpu_torch.probes.bench_member import time_ms
     from metakssd_tpu_torch.state import accept_tables
 
     dev = torch.device("cuda")
@@ -446,14 +445,14 @@ def phase_kernels(work: str, seed: int) -> dict:
         # times at the 64M-window batch (k1: positions off, the streaming
         # path; k1_pos: positions on, the genome path)
         t = {
-            "k1": _time_ms(lambda: sketch_cuda.window_compact(
+            "k1": time_ms(lambda: sketch_cuda.window_compact(
                 c, tabs, p, cap), 10),
-            "k1_pos": _time_ms(lambda: sketch_cuda.window_compact(
+            "k1_pos": time_ms(lambda: sketch_cuda.window_compact(
                 c, tabs, p, cap, True), 10),
-            "k1_plain": _time_ms(lambda: sketch_cuda.window_compact_plain(
+            "k1_plain": time_ms(lambda: sketch_cuda.window_compact_plain(
                 c, tabs, p, cap, False), 3),
-            "k2": _time_ms(lambda: sketch_cuda.window_full(c, tabs, p), 10),
-            "k2_plain": _time_ms(lambda: sketch_cuda.window_full_plain(
+            "k2": time_ms(lambda: sketch_cuda.window_full(c, tabs, p), 10),
+            "k2_plain": time_ms(lambda: sketch_cuda.window_full_plain(
                 c, tabs, p), 3),
         }
         for name, ms in t.items():
@@ -476,7 +475,7 @@ def phase_kernels(work: str, seed: int) -> dict:
 
 
 def _member_cases(seed: int):
-    """(name, haystack, values, needles) uint32 numpy cases of K3."""
+    """(name, haystack, values, needles) uint32 numpy edge cases of K3."""
     import numpy as np
     rng = np.random.default_rng(seed + 1)
 
@@ -489,15 +488,17 @@ def _member_cases(seed: int):
 
     hay = np.unique(u32(0, ALL_ONES, MEMBER_HAY))     # keys >= 2^31 too
     vals = u32(0, 1 << 32, hay.size)
-    yield "4M x 1M", hay, vals, half_hits(hay, MEMBER_NEEDLES)
     dense = np.unique(np.concatenate([u32(0, 1 << 17, 100_000),
                                       u32(1 << 30, 1 << 31, 1_000_000)]))
+    # 100K keys in one bucket of the index; blocks wider than the window
     yield ("clustered", dense, u32(0, 1 << 32, dense.size), np.sort(
         np.concatenate([u32(0, 1 << 17, 3000), rng.choice(dense, 200_000)])))
+    yield ("unsorted", hay, vals, rng.permutation(half_hits(hay, 300_000)))
     for n in (1, 100, 2047, 0):
         yield f"{n} needles", hay, vals, half_hits(hay, n)
     yield ("empty haystack", np.zeros(0, np.uint32), np.zeros(0, np.uint32),
            half_hits(hay, 1000))
+    yield ("15-key haystack", hay[:15], vals[:15], half_hits(hay[:15], 500))
     ones = np.full(3, ALL_ONES, np.uint32)
     yield ("0xFFFFFFFF absent", hay, vals,
            np.sort(np.concatenate([half_hits(hay, 10_000), ones])))
@@ -506,59 +507,143 @@ def _member_cases(seed: int):
            np.sort(np.concatenate([half_hits(hay, 10_000), ones])))
 
 
+def _k3_vs_plain(name, h, vals, nd, index) -> int:
+    """K3 (through ``index``, or building one) against member_plain in
+    identity and values mode, and against the indexed formulation in
+    plain torch; returns the max value error and checks the hits."""
+    import torch
+    from metakssd_tpu_torch.ops import merge
+    err = 0
+    for v in (None, vals):
+        m, val = merge.member(h, v, nd, index)
+        pm, pv = merge.member_plain(h, v, nd)
+        torch.cuda.synchronize()
+        check(torch.equal(m, pm), f"K3 {name}: member differs from plain")
+        if nd.numel():
+            err = max(err, int(((val.long() & ALL_ONES)
+                                - (pv.long() & ALL_ONES)).abs().max()
+                               .item()))
+        check(torch.equal(val, pv), f"K3 {name}: value differs")
+        if index is not None:
+            im, iv = merge.member_indexed_plain(h, v, nd, index)
+            check(torch.equal(m, im) and torch.equal(val, iv),
+                   f"K3 {name}: differs from the indexed plain version")
+        del pm, pv
+    hits = int(m.sum().item())
+    print(f"  K3 {name:18s} haystack {h.numel():9d} needles "
+          f"{nd.numel():9d} members {hits:9d} == plain", flush=True)
+    return err
+
+
+def _k3_ops(x64, index, nh: int) -> int:
+    """int32 operations of K3's indexed search of these needles (int64
+    copies of the u32 keys): per needle 4 for its bucket's bounds (shift,
+    compare, two table reads), 4 for each halving step of a lower-bound
+    search of its bucket (bitlen of the bucket's size), and 4 for the
+    compare and the two writes.  Counted from this run's needles and
+    index: a needle above every key has an empty bucket."""
+    import torch
+    if index.nb:
+        t = index.table.long() & ALL_ONES
+        b = x64 >> index.shift
+        inside = b < index.nb
+        b = b.clamp(max=index.nb - 1)
+        size = torch.where(inside, t[b + 1] - t[b], 0)
+        del t, b, inside
+    else:
+        size = torch.full_like(x64, nh)
+    # frexp's exponent is bitlen for a size > 0, and 0 for 0
+    steps = int(torch.frexp(size.double()).exponent.long().sum().item())
+    return 8 * x64.numel() + 4 * steps
+
+
 def phase_member(seed: int) -> dict:
-    """K3 vs plain on the card, in identity and values mode; returns the
-    max value error and the times at 4M x 1M."""
+    """K3 and its index build against their plain versions on the card,
+    in identity and values mode: the edge cases, then the three shapes of
+    ``probes/bench_member.py`` (``4M x 1M``, ``dist batch``, ``set -s``),
+    each timed beside its plain version, ``torch.searchsorted`` and its
+    bound.  Returns the max value error of K3 and of its index and the
+    per-shape records."""
     import numpy as np
     import torch
     from metakssd_tpu_torch.ops import merge
+    from metakssd_tpu_torch.probes import bench_member
+    from metakssd_tpu_torch.probes.bench_member import time_ms
 
     dev = torch.device("cuda")
-    err = 0
-    timed = None
+    err = index_err = 0
     for name, hay, vals, needles in _member_cases(seed):
         h = merge.u32_tensor(hay).to(dev)
         nd = merge.u32_tensor(needles).to(dev)
-        for v in (None, merge.u32_tensor(vals).to(dev)):
-            m, val = merge.member(h, v, nd)
-            pm, pv = merge.member_plain(h, v, nd)
-            torch.cuda.synchronize()
-            check(torch.equal(m, pm), f"K3 {name}: member differs from plain")
-            if needles.size:
-                err = max(err, int(((val.long() & 0xFFFFFFFF)
-                                    - (pv.long() & 0xFFFFFFFF))
-                                   .abs().max().item()))
-            check(torch.equal(val, pv), f"K3 {name}: value differs")
-        hits = int(m.sum().item())
+        err = max(err, _k3_vs_plain(name, h, merge.u32_tensor(vals).to(dev),
+                                    nd, None))
         if name.startswith("0xFFFFFFFF"):
+            m, _ = merge.member(h, None, nd)
             tail = m[nd == -1].bool()
             check(bool(tail.all()) if "present" in name
                    else not bool(tail.any()), f"K3 {name}")
-        print(f"  K3 {name:18s} haystack {hay.size:8d} needles "
-              f"{needles.size:8d} members {hits:8d} == plain", flush=True)
+    shapes = []
+    for name in bench_member.SHAPES:
+        h, v, x = bench_member.make_shape(name, seed, dev)
+        ix = merge.build_index(h)
+        plain_ix = merge.build_index_plain(h)
+        torch.cuda.synchronize()
+        check((ix.nb, ix.shift) == (plain_ix.nb, plain_ix.shift)
+               and torch.equal(ix.table, plain_ix.table),
+               f"K3 index {name}: differs from build_index_plain")
+        if ix.nb:
+            index_err = max(index_err, int(
+                ((ix.table.long() & ALL_ONES)
+                 - (plain_ix.table.long() & ALL_ONES)).abs().max().item()))
+        err = max(err, _k3_vs_plain(name, h, v, x, ix))
+        # the library yardsticks: torch.searchsorted of the same keys, as
+        # int64 (the int32 bit view misorders keys >= 2^31); the copies
+        # are set-up
+        h64, x64 = h.long() & ALL_ONES, x.long() & ALL_ONES
+        b64 = torch.arange(ix.nb, dtype=torch.int64, device=dev) << ix.shift
+        rec = {"shape": name, "nh": h.numel(), "nn": x.numel(),
+               "nb": ix.nb, "shift": ix.shift,
+               "k3_ms": bench_member.graph_ms(
+                   lambda: merge.member(h, None, x, ix)),
+               "k3_events_ms": time_ms(
+                   lambda: merge.member(h, None, x, ix), 20),
+               "plain_ms": time_ms(
+                   lambda: merge.member_plain(h, None, x), 5),
+               "library_ms": time_ms(
+                   lambda: torch.searchsorted(h64, x64), 5),
+               "index_ms": time_ms(lambda: merge.build_index(h), 5),
+               "index_plain_ms": time_ms(
+                   lambda: merge.build_index_plain(h), 5),
+               "index_library_ms": time_ms(
+                   lambda: torch.searchsorted(h64, b64), 5)}
         if name == "4M x 1M":
-            timed = (h, merge.u32_tensor(vals).to(dev), nd)
-            check(hits >= needles.size // 2, "K3 4M x 1M: too few hits")
-    h, v, nd = timed
-    one_query = nd[::nd.numel() // QUERY_KMERS][:QUERY_KMERS].contiguous()
-    # the library yardstick: torch.searchsorted of the same keys, as int64
-    # (the int32 bit view misorders keys >= 2^31); the copies are set-up
-    h64, nd64 = h.long() & ALL_ONES, nd.long() & ALL_ONES
-    t = {"library": _time_ms(lambda: torch.searchsorted(h64, nd64), 20)}
-    del h64, nd64
-    for label, x in (("", nd), ("query_", one_query)):
-        for mode, vv in (("", None), ("values_", v)):
-            t[f"{label}{mode}k3"] = _time_ms(
-                lambda: merge.member(h, vv, x), 20)
-            t[f"{label}{mode}plain"] = _time_ms(
-                lambda: merge.member_plain(h, vv, x), 5)
-    for name, ms in t.items():
-        n = one_query.numel() if name.startswith("query_") else nd.numel()
-        name = "torch.searchsorted" if name == "library" else name
-        print(f"  K3 {name:20s} {ms:10.4f} ms  {n / ms / 1e3:10.2f} "
-              f"Mneedles/s  ({h.numel()} x {n})", flush=True)
-    return {"err": err, "times": t, "shape": {"hay": h.numel(),
-                                              "needles": nd.numel()}}
+            rec["values_k3_ms"] = time_ms(
+                lambda: merge.member(h, v, x, ix), 20)
+            rec["values_plain_ms"] = time_ms(
+                lambda: merge.member_plain(h, v, x), 5)
+        rec["ops"] = _k3_ops(x64, ix, rec["nh"])
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            4 * rec["nh"] + 12 * rec["nn"], rec["ops"])
+        rec["index_bound_ms"], rec["index_bound_by"] = _bound(
+            4 * rec["nh"] + 4 * (ix.nb + 1),
+            ix.nb * (4 * (rec["nh"] - 1).bit_length() + 4))
+        print(f"  K3 {name}: {rec['nh']} x {rec['nn']}  K3 "
+              f"{rec['k3_ms']:.4f} ms (graph replay; back-to-back calls "
+              f"{rec['k3_events_ms']:.4f})  plain {rec['plain_ms']:.4f}  "
+              f"torch.searchsorted {rec['library_ms']:.4f}  bound "
+              f"{rec['bound_ms']:.4f} ({rec['bound_by']})  "
+              f"{rec['nn'] / rec['k3_ms'] / 1e3:.2f} Mneedles/s", flush=True)
+        print(f"  K3 {name}: index of {ix.nb} buckets (shift {ix.shift}) "
+              f"{rec['index_ms']:.4f} ms  plain {rec['index_plain_ms']:.4f}"
+              f"  torch.searchsorted {rec['index_library_ms']:.4f}  bound "
+              f"{rec['index_bound_ms']:.4f} ({rec['index_bound_by']})"
+              + ("" if name != "4M x 1M" else
+                 f"; values mode K3 {rec['values_k3_ms']:.4f} ms, plain "
+                 f"{rec['values_plain_ms']:.4f}"), flush=True)
+        shapes.append(rec)
+        del h, v, x, h64, x64, b64
+        torch.cuda.empty_cache()
+    return {"err": err, "index_err": index_err, "shapes": shapes}
 
 
 def _tsv_rows(path: str) -> list:
@@ -679,6 +764,7 @@ def phase_search(work: str, seed: int) -> dict:
     import numpy as np
     import torch
     from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.formats.codir import CoDir
 
     gdir = os.path.join(work, "genomes")
     shufp = os.path.join(work, "K8S5L2.shuf")
@@ -704,8 +790,18 @@ def phase_search(work: str, seed: int) -> dict:
         "dist", "-r", refco, "-o", out["cuda"], "--device", "cuda", qryco])}
     launches = dict(sketch_cuda.LAUNCHES)
     print(f"  search launches {launches}", flush=True)
-    check(launches["member"] > 0, f"K3 never launched in the search: "
-                                   f"{launches}")
+    ref, qry = CoDir.read(refco), CoDir.read(qryco)
+    comps = [c for c in range(ref.stat.comp_num)
+             if ref.ids[c].size and qry.ids[c].size]
+    check(comps and launches["member"] == len(comps)
+           and launches["member_index"] == len(comps),
+           f"K3 and its index must launch once per component "
+           f"({len(comps)}) in the search: {launches}")
+    nh = [np.unique(ref.ids[c]).size for c in comps]
+    nn = [qry.ids[c].size for c in comps]
+    print(f"  search K3 calls: {len(comps)} (one per component), "
+          f"haystack {min(nh)}-{max(nh)} keys, needles {min(nn)}-"
+          f"{max(nn)} ({len(truth)} queries)", flush=True)
     secs["cpu"] = run_cli("dist -r --device cpu", [
         "dist", "-r", refco, "-o", out["cpu"], "--device", "cpu", qryco])
     refmco = os.path.join(work, "refmco")
@@ -751,7 +847,8 @@ def phase_search(work: str, seed: int) -> dict:
           "reference is its source; median Jaccard by rate "
           + ", ".join(f"{r}: {m:.6f}" for r, m in zip(RATES, med))
           + f"; unrelated queries max Jaccard {unrelated:.6f}", flush=True)
-    return {"launches": launches, "seconds": secs}
+    return {"launches": launches, "seconds": secs,
+            "k3_calls": {"calls": len(comps), "nh": nh, "nn": nn}}
 
 
 def _same_dirs(a: str, b: str, what: str) -> int:
@@ -847,6 +944,7 @@ def phase_set(work: str, seed: int, sres: dict) -> dict:
     on cpu, byte-identical dirs; then the real chain."""
     import torch
     from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.formats.codir import CoDir
     from metakssd_tpu_torch.pipeline import CoStat
     t = time.time()
     co, taxf, nids = make_set_data(work, seed)
@@ -856,11 +954,22 @@ def phase_set(work: str, seed: int, sres: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     sketch_cuda.reset_launches()
     wd = {"cuda": set_leg(work, "cuda", co, taxf)}
-    launches = sketch_cuda.LAUNCHES["member"]
+    launches = dict(sketch_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"  set leg launches {dict(sketch_cuda.LAUNCHES)}; peak device "
+    print(f"  set leg launches {launches}; peak device "
           f"memory {peak / 2**20:.1f} MiB", flush=True)
-    check(launches > 0, "K3 never launched in the set leg")
+    check(launches["member"] > 0 and launches["member_index"] > 0,
+           "K3 or its index never launched in the set leg")
+    # the K3 calls of -i (uq against the pans) and -s (uq against co)
+    uq = os.path.join(wd["cuda"], "uq")
+    calls = {f"{verb} c{c}": (
+        os.path.getsize(os.path.join(uq, f"uniq_pan.{c}")) // 4,
+        CoDir.read(d, want_abund=False).ids[c].size)
+             for verb, d in (("-i", os.path.join(wd["cuda"], "pan")),
+                             ("-s", co))
+             for c in range(CoStat.read(d).comp_num)}
+    print("  set K3 calls (haystack x needles): " + ", ".join(
+        f"{v} {h} x {n}" for v, (h, n) in calls.items()), flush=True)
     wd["cpu"] = set_leg(work, "cpu", co, taxf)
     outs = sorted(os.listdir(wd["cuda"]))
     check(outs == sorted(os.listdir(wd["cpu"])) and len(outs) == 6,
@@ -879,7 +988,7 @@ def phase_set(work: str, seed: int, sres: dict) -> dict:
           f"--device cuda and --device cpu; {st.all_ctx_ct} markers in "
           f"{st.infile_num} taxa", flush=True)
     _real_chain(work, sres)
-    return {"launches": launches, "markers": mk}
+    return {"launches": launches, "markers": mk, "k3_calls": calls}
 
 
 def _abv_blocks(path: str, index_of: dict):
@@ -1063,6 +1172,7 @@ def phase_probes() -> list:
                                            probe_floor_noread,
                                            probe_kernel_cost, probe_r4)
     from metakssd_tpu_torch.probes._common import graph_ms, vary
+    from metakssd_tpu_torch.probes.bench_member import time_ms
 
     mods = (("P1", probe_kernel_cost), ("P2", probe_r4),
             ("P3", probe_floor_chunk), ("P4", probe_floor_noread))
@@ -1088,7 +1198,7 @@ def phase_probes() -> list:
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max().item())
         check(torch.equal(got, want), f"{pid} {v.name}: kernel != plain")
-        plain_ms = _time_ms(lambda: v.plain(v.tiles), 2)
+        plain_ms = time_ms(lambda: v.plain(v.tiles), 2)
         # the card's time per dispatch: the path's K dispatches replayed
         # from a CUDA graph (the path's own time includes the host's)
         inputs = vary(v.tiles)
@@ -1210,13 +1320,12 @@ def main(argv=None) -> int:
     _phase("cuda tests", t0)
 
     t = kres["times"]
-    mt = mres["times"]
     k1_bound, k2_bound = _k12_bounds(kres["shape"])
-    # K3 at 4.19M x 1M, identity mode: haystack and needles read once, a
-    # member flag and a value written per needle; a lower bound each
-    ms_ = mres["shape"]
-    k3_bound = _bound(4 * ms_["hay"] + 12 * ms_["needles"], ms_["needles"]
-                      * (4 * (ms_["hay"] - 1).bit_length() + 4))
+    # K3's headline numbers stay those of 4.19M x 1M (identity mode); the
+    # record carries every shape's (phase_member)
+    k3 = mres["shapes"][0]
+    launches = {k: qres["launches"][k] + setres["launches"][k]
+                for k in ("member", "member_index")}
     print(json.dumps({"kernels": [
         {"name": "sketch_compact (K1)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/sketch.cu",
@@ -1235,10 +1344,31 @@ def main(argv=None) -> int:
         {"name": "member (K3)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/member.cu",
          "replaces": "metakssd_tpu/ops/merge_device.py:29",
-         "launches": qres["launches"]["member"] + setres["launches"],
-         "max_abs_err": mres["err"], "ms": mt["k3"],
-         "plain_ms": mt["plain"], "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": mt["library"]},
+         "launches": launches["member"], "max_abs_err": mres["err"],
+         "ms": k3["k3_ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": k3["library_ms"],
+         "shapes": [{k: r[k] for k in (
+             "shape", "nh", "nn", "ops", "k3_ms", "k3_events_ms",
+             "plain_ms", "library_ms", "bound_ms", "bound_by")}
+             for r in mres["shapes"]],
+         "search_calls": qres["k3_calls"], "set_calls": setres["k3_calls"]},
+        # K3's set-up, no TPU kernel: the anchor pass of sorted_membership
+        # was a host search; timed at the set -s haystack, the largest
+        {"name": "member_index (K3 index build)", "route": "cuda",
+         "source": "metakssd_tpu_torch/csrc/member.cu",
+         "replaces": "metakssd_tpu/ops/merge.py:147",
+         "launches": launches["member_index"],
+         "max_abs_err": mres["index_err"],
+         "ms": mres["shapes"][-1]["index_ms"],
+         "plain_ms": mres["shapes"][-1]["index_plain_ms"],
+         "bound_ms": mres["shapes"][-1]["index_bound_ms"],
+         "bound_by": mres["shapes"][-1]["index_bound_by"],
+         "library_ms": mres["shapes"][-1]["index_library_ms"],
+         "shapes": [{k: r[k] for k in (
+             "shape", "nh", "nb", "index_ms", "index_plain_ms",
+             "index_library_ms", "index_bound_ms")}
+             for r in mres["shapes"]]},
         *probes,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

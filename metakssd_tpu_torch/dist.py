@@ -3,12 +3,13 @@
 For every query sketch and every reference, the number of shared k-mers
 (the ``sharedk_ct.dat`` matrix), then ``distance.out``.  Against a sketch
 dir, each component's sorted distinct reference k-mers are staged on the
-device once (``state.haystack_from_inverted``) and each query's sorted
-k-mers are searched in them by K3 (``ops/merge.py``); the matched rows'
-postings are counted on the host.  Against an mco dir the counts come
-from the host mmap route, which runs no kernel.  That route, the
-options, the statistics and the file formats are copied from the JAX
-package: ``distance.out`` and ``sharedk_ct.dat`` are byte-identical to
+device once with K3's index (``state.haystack_from_inverted``), and the
+queries' k-mers of that component are searched in it by one K3 call
+(``ops/merge.py``) per MAX_NEEDLES of them, at query boundaries; each
+query's matched rows' postings are counted on the host.  Against an mco dir the counts come from the host mmap route,
+which runs no kernel.  That route, the options, the statistics and the
+file formats are copied from the JAX package: ``distance.out`` and
+``sharedk_ct.dat`` are byte-identical to
 ``metakssd_tpu.dist.run_dist_search``'s.
 """
 
@@ -35,6 +36,11 @@ ALP_SIZE = 4  # DNA (reference command_dist.c:554)
 # cap on expanded postings per reduction chunk (~128 MB of int64
 # scratch); bounds host memory for mco rows with huge posting lists
 _EXPAND_CHUNK = 16 << 20
+
+# needles of one K3 call in the sketch search (12 bytes each on the card,
+# 5 on the host's readback): whole queries' runs up to this many, or one
+# query's run where that alone is larger
+MAX_NEEDLES = 1 << 26
 
 
 def _is_mco(path) -> bool:
@@ -162,19 +168,32 @@ def shared_kmer_matrix(ref: CoDir | str, qry: CoDir | str, *, device,
     num_refs = ref.stat.infile_num
     if out is None:
         out = np.zeros((qry.stat.infile_num, num_refs), dtype=np.uint32)
+    nq = qry.stat.infile_num
     for c in range(ref.stat.comp_num):
         inv = mco_fmt.InvertedIndex.from_codir(ref, c)
-        if inv.kmers.size == 0:
+        bnd = qry.index[c].astype(np.int64)
+        if inv.kmers.size == 0 or bnd[-1] == bnd[0]:
             continue
         hay = haystack_from_inverted(inv, dev)
         offs = inv.offsets.astype(np.int64)
-        for q in range(qry.stat.infile_num):
-            qids = np.sort(qry.genome_ids(c, q))
-            if qids.size == 0:
-                continue
-            member, pos = merge.sorted_membership(hay, None, qids)
-            rows = pos[member].astype(np.int64)
-            out[q] += _count_postings(rows, offs, inv.gids, num_refs)
+        q0 = 0
+        while q0 < nq:
+            # the next queries' ids of component c, up to MAX_NEEDLES of
+            # them (at least one query), in one K3 call: the kernel is
+            # right in any needle order, so the runs are not sorted
+            q1 = max(q0 + 1, int(np.searchsorted(
+                bnd, bnd[q0] + MAX_NEEDLES, side="right")) - 1)
+            if bnd[q1] > bnd[q0]:
+                member, pos = merge.sorted_membership(
+                    hay, None, qry.ids[c][bnd[q0]:bnd[q1]])
+                for q in range(q0, q1):
+                    lo, hi = bnd[q] - bnd[q0], bnd[q + 1] - bnd[q0]
+                    if hi == lo:
+                        continue
+                    rows = pos[lo:hi][member[lo:hi]].astype(np.int64)
+                    out[q] += _count_postings(rows, offs, inv.gids,
+                                              num_refs)
+            q0 = q1
     return out
 
 

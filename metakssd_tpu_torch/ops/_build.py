@@ -37,9 +37,11 @@ _SIGNATURES = {
     # k, subk, drlevel, out_dr, out_keep, stream
     "mkssd_sketch_full": [_P, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _I,
                           _P, _P, _P],
-    # hay, nh, values (NULL = identity), needles, nn, out_member,
-    # out_value, stream
-    "mkssd_member": [_P, _LL, _P, _P, _LL, _P, _P, _P],
+    # hay, nh, nb, shift, table, stream
+    "mkssd_member_index": [_P, _LL, _LL, _I, _P, _P],
+    # hay, nh, table (NULL when nb == 0), nb, shift, values (NULL =
+    # identity), needles, nn, out_member, out_value, stream
+    "mkssd_member": [_P, _LL, _P, _LL, _I, _P, _P, _LL, _P, _P, _P],
     # tiles, dtype, nb, tile_rows, row0, row1, op, out, stream
     "mkssd_probe_floor": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     # tiles, dtype, nb, tile_rows, nrows, TL, out, stream

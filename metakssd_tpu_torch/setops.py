@@ -5,7 +5,8 @@
   per component (``parallel.mesh.device_union``), with exact counts for
   the k-mers present in exactly one genome.
 * ``sketch_operate`` (-s / -i): the membership of every genome's ids in the
-  sorted pan is K3 (``ops.merge``) in identity mode; the per-genome kept
+  sorted pan is one K3 call (``ops.merge``) per component, in identity
+  mode, through the pan's ``StaticHaystack`` index; the per-genome kept
   counts are a prefix sum read at the index bounds.
 * ``grouping_genomes`` (-g): ``organize_taxf`` gives the
   reference's taxon order, then one device sort and unique over 64-bit
@@ -91,7 +92,7 @@ def sketch_operate(insketch: str, pan_dir: str, outdir: str,
             hay = merge.StaticHaystack(np.sort(_read_pan(pan_dir, c)), None,
                                        dev)
             ids = merge.u32_tensor(cd.ids[c]).to(dev)
-            member, _ = merge.member(hay.hay, None, ids)
+            member, _ = merge.member(hay.hay, None, ids, hay.index)
             keep = member.bool() if intersect else member == 0
             ids[keep].cpu().numpy().view(np.uint32).tofile(
                 os.path.join(outdir, f"{SKCH_PREFIX}.{c}"))

@@ -14,8 +14,8 @@ Four pieces of state cross over unchanged in content:
 * a sketch dir's per-component inverted index,
   ``mco_fmt.InvertedIndex.from_codir``'s ``(kmers, offsets, gids)``,
   whose sorted distinct k-mers become the dist search haystack (u32 bits
-  in int32, as above); offsets and gids stay on the host, where the
-  postings are counted;
+  in int32, as above) with K3's search index (``ops/merge.MemberIndex``);
+  offsets and gids stay on the host, where the postings are counted;
 * an abv index, ``AbvIndex`` (``formats/abv.py``), whose postings become
   the dense [nsamples, nspecies] float32 matrix of ``ops/dense_abv.py``,
   equal to the JAX ``DenseAbv.from_index``'s.
@@ -85,7 +85,8 @@ def profile_index_from_staged(comp_idx: list, nref: int, device):
 
 def haystack_from_inverted(inv, device):
     """The port's ``StaticHaystack`` of one component's inverted index, in
-    identity mode: the value of a hit is its posting row."""
+    identity mode (the value of a hit is its posting row), with K3's
+    search index built once on ``device``."""
     from metakssd_tpu_torch.ops.merge import StaticHaystack
     return StaticHaystack(inv.kmers, None, device)
 

@@ -1,6 +1,6 @@
-"""The membership kernel K3 (metakssd_tpu_torch/csrc/member.cu) against its
-plain PyTorch version, and the port's sketch search on the card against
-the same search on the CPU.
+"""The membership kernel K3 (metakssd_tpu_torch/csrc/member.cu) and its
+index build against their plain PyTorch versions, and the port's sketch
+search on the card against the same search on the CPU.
 
 Every test here carries the ``cuda`` marker and skips where there is no
 CUDA device.  The module imports neither jax nor the JAX package, so on a
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from metakssd_tpu_torch import dist, pipeline
+from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.formats.shuf import make_shuf
 from metakssd_tpu_torch.ops import merge, sketch_cuda
 from metakssd_tpu_torch.params import SketchParams
@@ -98,7 +99,11 @@ def test_member_matches_plain(cuda, name, identity):
     sketch_cuda.reset_launches()
     m, val = merge.member(h, v, nd)
     torch.cuda.synchronize()
+    # one K3 launch per call with needles; the index it builds for a bare
+    # tensor is counted apart
     assert sketch_cuda.LAUNCHES["member"] == (1 if needles.size else 0)
+    assert sketch_cuda.LAUNCHES["member_index"] == \
+        (1 if needles.size and hay.size >= 16 else 0)
     pm, pv = merge.member_plain(h, v, nd)
     assert torch.equal(m, pm) and torch.equal(val, pv)
     em, ev = _numpy_membership(hay, None if identity else values, needles)
@@ -115,8 +120,9 @@ def _write_fasta(path, seq_codes):
 
 
 def test_search_cuda_matches_cpu(cuda, tmp_path):
-    """dist search on the card (K3 once per query) writes the
-    distance.out and sharedk_ct.dat of the CPU run, byte for byte."""
+    """dist search on the card (K3 once per component, not per query)
+    writes the distance.out and sharedk_ct.dat of the CPU run, byte for
+    byte."""
     rng = np.random.default_rng(5)
     shuf = make_shuf(SketchParams(k=8, subk=5, drlevel=2), seed=6)
     genomes = [rng.integers(0, 4, 600_000) for _ in range(3)]
@@ -133,12 +139,16 @@ def test_search_cuda_matches_cpu(cuda, tmp_path):
     pipeline.run_stage1(gpaths, shuf, ref, device=cuda)
     pipeline.run_stage1(qpaths, shuf, qry, device=cuda)
     opts = dist.DistOptions(keep_shared_kmer=True)
+    comps = CoStat.read(ref).comp_num
+    assert CoStat.read(qry).ctx_ct.min() > 0
     outs = {}
     for dev in ("cpu", "cuda"):
         sketch_cuda.reset_launches()
         outs[dev] = str(tmp_path / f"out_{dev}")
         dist.run_dist_search(ref, qry, outs[dev], opts, device=dev)
-        assert sketch_cuda.LAUNCHES["member"] == (3 if dev == "cuda" else 0)
+        want = comps if dev == "cuda" else 0
+        assert sketch_cuda.LAUNCHES["member"] == want
+        assert sketch_cuda.LAUNCHES["member_index"] == want
     for f in ("distance.out", "sharedk_ct.dat"):
         with open(os.path.join(outs["cpu"], f), "rb") as a, \
                 open(os.path.join(outs["cuda"], f), "rb") as b:
@@ -147,3 +157,115 @@ def test_search_cuda_matches_cpu(cuda, tmp_path):
     m = np.fromfile(os.path.join(outs["cuda"], "sharedk_ct.dat"),
                     np.uint32).reshape(3, 3)
     assert (m.argmax(axis=1) == np.arange(3)).all()
+
+
+INDEX_CASES = ["uniform", "clustered", "high_keys", "all_ones",
+               "small_keys", "sixteen_keys", "fifteen_keys", "empty"]
+
+
+def _index_hay(name: str) -> np.ndarray:
+    rng = np.random.default_rng(INDEX_CASES.index(name) + 500)
+    if name == "uniform":
+        return np.unique(_u32(rng, 0, 1 << 32, 2_000_000))
+    if name == "clustered":            # 100K keys in one bucket's range
+        return np.unique(np.concatenate([
+            _u32(rng, 0, 1 << 17, 100_000), _u32(rng, 1 << 30, 1 << 31,
+                                                 500_000)]))
+    if name == "high_keys":
+        return np.unique(_u32(rng, 1 << 31, 1 << 32, 300_000))
+    if name == "all_ones":
+        return np.append(np.unique(_u32(rng, 0, ALL_ONES, 300_000)),
+                         np.uint32(ALL_ONES))
+    if name == "small_keys":           # ids below 2^20: top bits all 0
+        return np.unique(_u32(rng, 0, 1 << 20, 400_000))
+    if name in ("sixteen_keys", "fifteen_keys"):
+        return np.unique(_u32(rng, 0, 1 << 32, 16 if name[0] == "s"
+                              else 15))
+    return np.zeros(0, np.uint32)
+
+
+@pytest.mark.parametrize("name", INDEX_CASES)
+def test_index_kernel_matches_plain(cuda, name):
+    """mkssd_member_index equals build_index_plain and numpy's lower
+    bounds of the bucket boundaries; one launch where there is a table,
+    none below 16 keys."""
+    hay = _index_hay(name)
+    h = merge.u32_tensor(hay).to(cuda)
+    sketch_cuda.reset_launches()
+    ix = merge.build_index(h)
+    torch.cuda.synchronize()
+    assert sketch_cuda.LAUNCHES["member_index"] == (1 if ix.nb else 0)
+    assert sketch_cuda.LAUNCHES["member"] == 0
+    plain = merge.build_index_plain(h)
+    assert (ix.nb, ix.shift) == (plain.nb, plain.shift)
+    assert torch.equal(ix.table, plain.table)
+    assert (ix.nb == 0) == (hay.size < 16)
+    if ix.nb:
+        bounds = np.arange(ix.nb, dtype=np.uint64) << np.uint64(ix.shift)
+        want = np.append(np.searchsorted(hay.astype(np.uint64), bounds),
+                         hay.size)
+        np.testing.assert_array_equal(
+            ix.table.cpu().numpy().view(np.uint32), want)
+
+
+SHAPES = ["dist_batch", "set_runs", "big_wide", "skewed", "staged"]
+
+
+def _shape(name: str):
+    """(haystack, values, needles) uint32 of the shapes dist -r and set
+    -s/-i give K3, at small sizes."""
+    rng = np.random.default_rng(SHAPES.index(name) + 600)
+    hay = np.unique(_u32(rng, 0, ALL_ONES, 400_000))
+
+    def run(n, hit_share):
+        k = int(n * hit_share)
+        return np.sort(np.concatenate([rng.choice(hay, k),
+                                       _u32(rng, 0, ALL_ONES, n - k)]))
+    if name == "dist_batch":            # 32 queries of 4096 sorted ids
+        needles = np.concatenate([run(4096, 0.5) for _ in range(32)])
+    elif name == "set_runs":            # genomes of about 1,024 sorted ids
+        needles = np.concatenate([run(int(n), 0.94) for n in
+                                  rng.integers(900, 1150, 300)])
+    elif name == "big_wide":            # 4M keys, random needle order
+        hay = np.unique(_u32(rng, 0, 1 << 32, 4_200_000))
+        needles = rng.permutation(run(300_000, 0.5))
+    elif name == "skewed":              # one bucket of about 100K keys
+        hay = np.unique(np.concatenate([
+            _u32(rng, 0, 1 << 17, 200_000), _u32(rng, 1 << 31, 1 << 32,
+                                                 200_000)]))
+        needles = np.concatenate([run(50_000, 0.5), np.sort(
+            _u32(rng, 0, 1 << 17, 30_000))])
+    else:                               # dense sorted needles: staged blocks
+        needles = run(400_000, 0.5)
+    return hay, _u32(rng, 0, 1 << 32, hay.size), needles
+
+
+@pytest.mark.parametrize("identity", [False, True])
+@pytest.mark.parametrize("name", SHAPES)
+def test_member_shapes_reuse_one_index(cuda, name, identity):
+    """K3 on the search and set shapes, through one StaticHaystack: equal
+    to member_plain and numpy on every call, and the index built once
+    for all of them."""
+    hay, values, needles = _shape(name)
+    sketch_cuda.reset_launches()
+    sh = merge.StaticHaystack(hay, None if identity else values, cuda)
+    assert sketch_cuda.LAUNCHES["member_index"] == 1
+    if name == "skewed":
+        sizes = np.diff(sh.index.table.cpu().numpy().view(np.uint32)
+                        .astype(np.int64))
+        assert sizes.max() > 90_000
+    em, ev = _numpy_membership(hay, None if identity else values, needles)
+    halves = np.array_split(np.arange(needles.size), 3)
+    for part in halves + [np.arange(needles.size)]:
+        nd = merge.u32_tensor(needles[part]).to(cuda)
+        m, val = merge.member(sh.hay, sh.values, nd, sh.index)
+        pm, pv = merge.member_plain(sh.hay, sh.values, nd)
+        torch.cuda.synchronize()
+        assert torch.equal(m, pm) and torch.equal(val, pv)
+        np.testing.assert_array_equal(m.cpu().numpy().astype(bool),
+                                      em[part])
+        np.testing.assert_array_equal(val.cpu().numpy().view(np.uint32),
+                                      ev[part])
+    assert sketch_cuda.LAUNCHES["member"] == len(halves) + 1
+    assert sketch_cuda.LAUNCHES["member_index"] == 1
+    assert em.any() and not em.all()
