@@ -39,8 +39,11 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    K3 must also equal the indexed formulation in plain torch and the
    index kernel ``build_index_plain``; prints K3's time (replayed from a
    CUDA graph, and between CUDA events over back-to-back calls) beside
-   its plain version's, ``torch.searchsorted``'s and its bound, and the
-   index build's likewise (CUDA events, after a warm-up);
+   its plain version's, ``torch.searchsorted``'s (timed the same two
+   ways) and its bound, and the
+   index build's likewise (CUDA events after a warm-up, and from a CUDA
+   graph; the largest key read on the host before the timed calls, as a
+   ``StaticHaystack`` has it, and once with that read inside them);
 4. slice: 1024 synthetic 1 Mbp genomes -> MarkerDB with the port's
    ``dist`` (L3K11), a 4M x 150 bp fastq sampled from 32 of them with
    skewed abundance, 0.1% N and a block of poly-A reads, then the port's
@@ -50,6 +53,21 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    exactly sampled genomes and every genome of coverage >= 1x, and that
    ``--device cpu`` (the plain versions) writes byte-identical TSVs on the
    first 200K reads;
+4b. stage1-flags: on phase 4's shuffle, genomes and fastq.  ``dist
+   --byread --device cuda`` of the 4M reads (launch counts zeroed: K1 and,
+   for the poly-A block's chunk, K2 must run): reads + 1 index entries,
+   the last the count of ids, and the distinct ids those of a plain
+   ``dist`` (occ); on the first CPU_READS reads the cuda and cpu per-read
+   dirs byte-identical and ``reverse -b`` of the card's printing every
+   read.  ``dist -P cat`` of those reads, with and without ``-A``,
+   byte-identical to ``dist`` of the file.  ``dist --ckpt`` of the genomes
+   in groups of 64, crashed by an injected exception after the 4th group
+   and resumed (the 12 groups left sketched), byte-identical to phase 4's
+   MarkerDB; ``profile --ckpt`` with a snapshot every 2 streamed batches,
+   crashed after the 4th and resumed (the batches left sketched),
+   byte-identical to phase 4's TSVs.  ``profile --shard-db 1`` (launch
+   counts zeroed: K3 and its index once per component), byte-identical to
+   phase 4's TSVs; its K3 call timed as phase 3 times its shapes;
 5. search: the same genomes sketched at K8S5L2 (the prokaryote default)
    as a reference, and 128 query genomes of 1 Mbp (16 substituted copies
    of distinct references at each of 0.1, 0.5, 1, 2, 5 and 10%, and 32
@@ -71,9 +89,10 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    ``--device cpu``; every output dir must be byte-identical between the
    two.  Then the real chain on
    phase 4's genomes (taxa of 4 consecutive genomes): ``set -g/-q/-i``,
-   ``dist -A`` of the first 200K reads and ``composite -q`` and ``-q -b``
-   on both devices; TSVs and ``.abv`` files byte-identical, and every
-   taxon holding a genome of coverage >= 1x in those reads reported;
+   ``dist -A`` of the first 200K reads and ``composite -q``, ``-q -b``
+   and ``-q --shard-db 1`` on both devices; TSVs (the ``--shard-db 1`` ones
+   too) and ``.abv`` files byte-identical, and every taxon holding a
+   genome of coverage >= 1x in those reads reported;
 7. abv: one abundance vector per taxon of phase 6's markers (16,384
    vectors over 16,384 species dims, 30-600 nonzero dims of skewed
    prevalence, lognormal percentages), ``composite -i``, and 128 queries
@@ -91,20 +110,23 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    variant's CUDA kernel against its plain version on the same input,
    element for element; the card's time of the path's 16 dispatches
    replayed from a CUDA graph (the path's own time includes the host's
-   enqueueing), the plain version's, and for the sums one ``torch.sum``'s
-   (replayed alike);
+   enqueueing): the median and range of PROBE_REPLAYS timings, taken in
+   turns with one ``torch.sum``'s for the sums (replayed alike), and the
+   plain version's;
 9. cuda tests: ``pytest -m cuda`` on the four cuda-marked test files.
 
 The line before the last is the kernels' JSON record, with the launch
-counts of the ``profile`` leg (K1, K2), of the ``dist -r --device cuda``
-and ``set --device cuda`` legs (K3 and its index build) and of the probe
-path (P1-P4, one entry per variant), and each kernel's bound (K3's and
-the index build's also per shape): the larger of its bytes over
-3.35 TB/s and its 32-bit operations over the card's int32 rate (SMs x 64
-lanes x the largest SM clock, printed in phase 1), counted from this
-run's inputs (for K1 and K2, this run's kept windows; for K3, the
-bucket of each needle in this run's index).  The last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
+counts of the ``profile`` and ``dist --byread`` legs (K1, K2), of the
+``dist -r --device cuda``, ``set --device cuda`` and ``profile --shard-db
+1`` legs (K3 and its index build), each leg's in ``launches_by_leg`` and
+their sum in ``launches``, and of the probe path (P1-P4, one entry per
+variant), and each kernel's bound (K3's and the index build's also per
+shape, K3's with the ``profile --shard-db 1`` call's): the larger of its
+bytes over 3.35 TB/s and its 32-bit operations over the card's int32 rate
+(SMs x 64 lanes x the largest SM clock, printed in phase 1), counted from
+this run's inputs (for K1 and K2, this run's kept windows; for K3, the
+bucket of each needle in this run's index).  The last line is ``{"ok":
+true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  All data is made from --seed with numpy under
 ``.smoke_work/`` and removed at the end.
 """
@@ -115,6 +137,7 @@ import argparse
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -123,7 +146,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 try:
     from metakssd_tpu_torch.probes.smoke_data import (
-        CPU_READS, GENOME_LEN, L3K11, N_GENOMES, N_POLYA, READ_LEN,
+        CPU_READS, GENOME_LEN, L3K11, N_GENOMES, N_POLYA, N_READS, READ_LEN,
         SET_PER_TAXON, SET_POOL, SET_SHARED, SET_TAXA, SET_UNASSIGNED, check,
         make_set_data, make_slice_data, read_fasta, run_cli, set_leg,
         stage_seconds, write_fasta, write_fastq, write_zero_accepted_shuf)
@@ -148,6 +171,8 @@ ABV_PERTURBED = 32                # ... and perturbed copies of DB vectors
 ABV_CPU_QUERIES = 8               # dense queries run on the CPU too
 DENSE_TOL = 2e-3                  # dense vs sparse (tests/test_dense_abv.py)
 PROBE_REPS = 3                    # timed runs of each probe variant
+PROBE_REPLAYS = 5                 # graph timings of each (median, range)
+PROFILE_TSVS = ("species_coverage.tsv", "abundance.tsv")
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64           # Hopper: int32 operations per SM per clock
 INT32_OPS_PER_S = 0.0             # set from the card by card_int32_rate()
@@ -509,12 +534,13 @@ def _member_cases(seed: int):
 
 def _k3_vs_plain(name, h, vals, nd, index) -> int:
     """K3 (through ``index``, or building one) against member_plain in
-    identity and values mode, and against the indexed formulation in
-    plain torch; returns the max value error and checks the hits."""
+    identity mode and, where ``vals`` are given, values mode, and against
+    the indexed formulation in plain torch; returns the max value error
+    and checks the hits."""
     import torch
     from metakssd_tpu_torch.ops import merge
     err = 0
-    for v in (None, vals):
+    for v in (None,) if vals is None else (None, vals):
         m, val = merge.member(h, v, nd, index)
         pm, pv = merge.member_plain(h, v, nd)
         torch.cuda.synchronize()
@@ -596,52 +622,46 @@ def phase_member(seed: int) -> dict:
                 ((ix.table.long() & ALL_ONES)
                  - (plain_ix.table.long() & ALL_ONES)).abs().max().item()))
         err = max(err, _k3_vs_plain(name, h, v, x, ix))
-        # the library yardsticks: torch.searchsorted of the same keys, as
-        # int64 (the int32 bit view misorders keys >= 2^31); the copies
-        # are set-up
-        h64, x64 = h.long() & ALL_ONES, x.long() & ALL_ONES
+        rec = _k3_record(name, h, x, ix)
+        # the index kernel with the largest key read beforehand (a
+        # StaticHaystack has it on the host), beside the call that reads
+        # it from the card, and torch.searchsorted of the same boundaries;
+        # events and graph replay alike
+        h64 = h.long() & ALL_ONES
         b64 = torch.arange(ix.nb, dtype=torch.int64, device=dev) << ix.shift
-        rec = {"shape": name, "nh": h.numel(), "nn": x.numel(),
-               "nb": ix.nb, "shift": ix.shift,
-               "k3_ms": bench_member.graph_ms(
-                   lambda: merge.member(h, None, x, ix)),
-               "k3_events_ms": time_ms(
-                   lambda: merge.member(h, None, x, ix), 20),
-               "plain_ms": time_ms(
-                   lambda: merge.member_plain(h, None, x), 5),
-               "library_ms": time_ms(
-                   lambda: torch.searchsorted(h64, x64), 5),
-               "index_ms": time_ms(lambda: merge.build_index(h), 5),
-               "index_plain_ms": time_ms(
-                   lambda: merge.build_index_plain(h), 5),
-               "index_library_ms": time_ms(
-                   lambda: torch.searchsorted(h64, b64), 5)}
+        mk = int(h[-1].item()) & ALL_ONES
+        rec.update({
+            "nb": ix.nb, "shift": ix.shift,
+            "index_ms": time_ms(lambda: merge.build_index(h, mk), 5),
+            "index_graph_ms": bench_member.graph_ms(
+                lambda: merge.build_index(h, mk)),
+            "index_read_ms": time_ms(lambda: merge.build_index(h), 5),
+            "index_plain_ms": time_ms(lambda: merge.build_index_plain(h), 5),
+            "index_library_ms": time_ms(
+                lambda: torch.searchsorted(h64, b64), 5),
+            "index_library_graph_ms": bench_member.graph_ms(
+                lambda: torch.searchsorted(h64, b64))})
         if name == "4M x 1M":
             rec["values_k3_ms"] = time_ms(
                 lambda: merge.member(h, v, x, ix), 20)
             rec["values_plain_ms"] = time_ms(
                 lambda: merge.member_plain(h, v, x), 5)
-        rec["ops"] = _k3_ops(x64, ix, rec["nh"])
-        rec["bound_ms"], rec["bound_by"] = _bound(
-            4 * rec["nh"] + 12 * rec["nn"], rec["ops"])
         rec["index_bound_ms"], rec["index_bound_by"] = _bound(
             4 * rec["nh"] + 4 * (ix.nb + 1),
             ix.nb * (4 * (rec["nh"] - 1).bit_length() + 4))
-        print(f"  K3 {name}: {rec['nh']} x {rec['nn']}  K3 "
-              f"{rec['k3_ms']:.4f} ms (graph replay; back-to-back calls "
-              f"{rec['k3_events_ms']:.4f})  plain {rec['plain_ms']:.4f}  "
-              f"torch.searchsorted {rec['library_ms']:.4f}  bound "
-              f"{rec['bound_ms']:.4f} ({rec['bound_by']})  "
-              f"{rec['nn'] / rec['k3_ms'] / 1e3:.2f} Mneedles/s", flush=True)
         print(f"  K3 {name}: index of {ix.nb} buckets (shift {ix.shift}) "
-              f"{rec['index_ms']:.4f} ms  plain {rec['index_plain_ms']:.4f}"
-              f"  torch.searchsorted {rec['index_library_ms']:.4f}  bound "
+              f"{rec['index_ms']:.4f} ms (graph replay "
+              f"{rec['index_graph_ms']:.4f}; with the read of the largest "
+              f"key {rec['index_read_ms']:.4f})  plain "
+              f"{rec['index_plain_ms']:.4f}  torch.searchsorted "
+              f"{rec['index_library_ms']:.4f} (graph replay "
+              f"{rec['index_library_graph_ms']:.4f})  bound "
               f"{rec['index_bound_ms']:.4f} ({rec['index_bound_by']})"
               + ("" if name != "4M x 1M" else
                  f"; values mode K3 {rec['values_k3_ms']:.4f} ms, plain "
                  f"{rec['values_plain_ms']:.4f}"), flush=True)
         shapes.append(rec)
-        del h, v, x, h64, x64, b64
+        del h, v, x, h64, b64
         torch.cuda.empty_cache()
     return {"err": err, "index_err": index_err, "shapes": shapes}
 
@@ -716,16 +736,242 @@ def phase_slice(work: str, seed: int) -> dict:
                f"subset profile --device {dev} failed")
         print(f"  subset ({CPU_READS} reads) --device {dev}: "
               f"{time.time() - t:.3f} s", flush=True)
-    for name in ("species_coverage.tsv", "abundance.tsv"):
-        with open(os.path.join(sub_out["cuda"], name), "rb") as a, \
-                open(os.path.join(sub_out["cpu"], name), "rb") as b:
-            x, y = a.read(), b.read()
-        check(x == y and len(x) > 0,
-               f"{name}: --device cuda and --device cpu differ")
+    _same_files(sub_out["cuda"], sub_out["cpu"], PROFILE_TSVS,
+                "subset profile, --device cuda and --device cpu")
     print("  subset: --device cuda and --device cpu TSVs byte-identical",
           flush=True)
     return {"launches": launches, "shuf": shufp, "markerdb": db,
-            "subset": sub, "sub_coverage": sub_coverage}
+            "subset": sub, "sub_coverage": sub_coverage, "genomes": gdir,
+            "fastq": fq, "profile": out, "profile_s": profile_s,
+            "dist_s": dist_s}
+
+
+class _Injected(RuntimeError):
+    """The crash that the --ckpt legs inject."""
+
+
+def _crash_after(mod, name: str, n_ok: int, calls: list):
+    """Replace mod.name by a wrapper that counts its calls in ``calls``
+    and raises _Injected on call n_ok + 1 (n_ok None: never); returns the
+    function it replaced."""
+    real = getattr(mod, name)
+
+    def wrapped(*a, **kw):
+        if n_ok is not None and len(calls) >= n_ok:
+            raise _Injected(f"injected crash after {n_ok} calls of {name}")
+        calls.append(1)
+        return real(*a, **kw)
+    setattr(mod, name, wrapped)
+    return real
+
+
+def _interrupted(label: str, argv: list, mod, name: str, n_ok: int) -> int:
+    """Run the CLI with mod.name crashing after n_ok calls, then again
+    from its checkpoint; returns the calls of the resumed run."""
+    from metakssd_tpu_torch import cli
+    first: list = []
+    real = _crash_after(mod, name, n_ok, first)
+    try:
+        cli.main(argv)
+        check(False, f"{label}: the injected crash did not happen")
+    except _Injected:
+        pass
+    finally:
+        setattr(mod, name, real)
+    again: list = []
+    _crash_after(mod, name, None, again)
+    try:
+        t = time.time()
+        check(cli.main(argv) == 0, f"{label}: the resumed run failed")
+        print(f"  {label}: crashed after {n_ok} calls of {name}, resumed "
+              f"with {len(again)} in {time.time() - t:.3f} s", flush=True)
+    finally:
+        setattr(mod, name, real)
+    return len(again)
+
+
+def _same_files(a: str, b: str, names, what: str) -> None:
+    for f in names:
+        with open(os.path.join(a, f), "rb") as x, \
+                open(os.path.join(b, f), "rb") as y:
+            data = x.read()
+            check(data and data == y.read(), f"{what}: {f} differs")
+
+
+def _k3_record(name: str, h, x, ix) -> dict:
+    """K3's times at one shape (haystack h, needles x, index ix, int32
+    tensors of u32 bits on the card) in identity mode, the product paths'
+    mode: from a CUDA graph and back to back, beside its plain version
+    and torch.searchsorted on int64 copies (the int32 bit view misorders
+    keys >= 2^31; the copies are set-up), timed the same two ways; and
+    its bound from this run's needles and index."""
+    import torch
+    from metakssd_tpu_torch.ops import merge
+    from metakssd_tpu_torch.probes import bench_member
+    from metakssd_tpu_torch.probes.bench_member import time_ms
+    h64, x64 = h.long() & ALL_ONES, x.long() & ALL_ONES
+    rec = {"shape": name, "nh": h.numel(), "nn": x.numel(),
+           "k3_ms": bench_member.graph_ms(lambda: merge.member(h, None, x,
+                                                               ix)),
+           "k3_events_ms": time_ms(lambda: merge.member(h, None, x, ix), 20),
+           "plain_ms": time_ms(lambda: merge.member_plain(h, None, x), 5),
+           "library_ms": bench_member.graph_ms(
+               lambda: torch.searchsorted(h64, x64)),
+           "library_events_ms": time_ms(
+               lambda: torch.searchsorted(h64, x64), 20),
+           "ops": _k3_ops(x64, ix, h.numel())}
+    rec["bound_ms"], rec["bound_by"] = _bound(4 * rec["nh"] + 12 * rec["nn"],
+                                              rec["ops"])
+    print(f"  K3 {name}: {rec['nh']} x {rec['nn']}  K3 {rec['k3_ms']:.4f} "
+          f"ms (graph replay; back-to-back calls {rec['k3_events_ms']:.4f})"
+          f"  plain {rec['plain_ms']:.4f}  torch.searchsorted "
+          f"{rec['library_ms']:.4f} (back to back "
+          f"{rec['library_events_ms']:.4f})  bound {rec['bound_ms']:.4f} "
+          f"({rec['bound_by']}, {rec['ops']} ops)  "
+          f"{rec['nn'] / rec['k3_ms'] / 1e3:.2f} Mneedles/s", flush=True)
+    return rec
+
+
+def phase_stage1_flags(work: str, seed: int, sres: dict) -> dict:
+    """``dist --byread``, ``dist -P``, ``dist --ckpt``, ``profile --ckpt``
+    and ``profile --shard-db 1`` on phase 4's shuffle, genomes and fastq,
+    each against what phase 4 wrote or the plain run of the same input;
+    launch counts zeroed before the byread and shard-db legs."""
+    import numpy as np
+    from metakssd_tpu_torch import composite, pipeline
+    from metakssd_tpu_torch.formats.codir import CoDir
+    from metakssd_tpu_torch.io import native
+    from metakssd_tpu_torch.ops import merge, sketch, sketch_cuda
+    shufp, fq, sub = sres["shuf"], sres["fastq"], sres["subset"]
+    check(native.available(), "--ckpt streams through the host library, "
+                              "which did not build")
+    secs = {}
+
+    # --byread on the 4M-read fastq: K1 with positions, the poly-A block's
+    # chunk through K2
+    br = os.path.join(work, "byread_cuda")
+    sketch_cuda.reset_launches()
+    secs["dist --byread"] = run_cli("dist --byread --device cuda", [
+        "dist", "-L", shufp, "--byread", "-o", br, "--device", "cuda", fq])
+    br_launches = dict(sketch_cuda.LAUNCHES)
+    print(f"  byread launches {br_launches}", flush=True)
+    check(br_launches["sketch_compact"] > 0 and
+          br_launches["sketch_full"] > 0,
+          f"a sketch kernel never launched in dist --byread: {br_launches}")
+    plain = os.path.join(work, "sample_occ")
+    secs["dist (occ)"] = run_cli("dist (occ) --device cuda", [
+        "dist", "-L", shufp, "-o", plain, "--device", "cuda", fq])
+    occ = CoDir.read(plain, want_abund=False)
+    total = 0
+    for c in range(occ.stat.comp_num):
+        idx = np.fromfile(os.path.join(br, f"combco.index.{c}"), np.uint64)
+        ids = np.fromfile(os.path.join(br, f"combco.{c}"), np.uint32)
+        check(idx.size == N_READS + 1 and int(idx[-1]) == ids.size,
+              f"byread combco.index.{c}: {idx.size} entries, last "
+              f"{int(idx[-1])}, {ids.size} ids")
+        check(np.array_equal(np.unique(ids), occ.genome_ids(c, 0)),
+              f"byread component {c}: distinct ids differ from dist's")
+        total += ids.size
+    print(f"  byread: {N_READS} reads, {total} windows in stream order; "
+          "distinct ids == dist (occ)", flush=True)
+    sub_br = {}
+    for dev in ("cuda", "cpu"):
+        sub_br[dev] = os.path.join(work, f"byread_sub_{dev}")
+        secs[f"dist --byread {CPU_READS} reads {dev}"] = run_cli(
+            f"dist --byread ({CPU_READS} reads) {dev}", [
+                "dist", "-L", shufp, "--byread", "-o", sub_br[dev],
+                "--device", dev, sub])
+    _same_dirs(sub_br["cuda"], sub_br["cpu"], "byread subset")
+    rev = os.path.join(work, "byread_reverse.txt")
+    secs["reverse -b"] = _run_cli_to("reverse -b (byread subset)", [
+        "reverse", "-L", shufp, "-b", sub_br["cuda"]], rev)
+    with open(rev, "rb") as f:
+        nrec = f.read().count(b">read ")
+    check(nrec == CPU_READS, f"reverse -b printed {nrec} reads")
+
+    # -P cat: the same dir as dist of the file itself
+    for flags in ([], ["-A"]):
+        d = {k: os.path.join(work, f"pipe{''.join(flags)}_{k}")
+             for k in ("piped", "file")}
+        secs[f"dist -P cat {' '.join(flags)}".strip()] = run_cli(
+            f"dist -P cat {' '.join(flags)}", [
+                "dist", "-L", shufp, *flags, "-P", "cat", "-o", d["piped"],
+                "--device", "cuda", sub])
+        run_cli(f"dist {' '.join(flags)} (the file)", [
+            "dist", "-L", shufp, *flags, "-o", d["file"], "--device",
+            "cuda", sub])
+        _same_dirs(d["piped"], d["file"], f"-P cat {flags}")
+    print("  -P cat: with and without -A, byte-identical to dist of the "
+          "file", flush=True)
+
+    # --ckpt: a crash after the 4th group (dist) and after the 4th streamed
+    # batch (profile), then the resumed run
+    ckgroup, ckevery = pipeline.CKPT_GROUP, pipeline.CKPT_EVERY
+    pipeline.CKPT_GROUP, pipeline.CKPT_EVERY = 64, 2
+    try:
+        db = os.path.join(work, "markerdb_ckpt")
+        t = time.time()
+        groups = _interrupted("dist --ckpt", [
+            "dist", "-L", shufp, "--ckpt", "-o", db, "--device", "cuda",
+            sres["genomes"]], pipeline, "_batched_stage1", 4)
+        secs["dist --ckpt (crash + resume)"] = time.time() - t
+        check(groups == N_GENOMES // 64 - 4,
+              f"dist --ckpt resumed {groups} groups")
+        _same_dirs(db, sres["markerdb"], "dist --ckpt")
+        prof = os.path.join(work, "profile_ckpt")
+        t = time.time()
+        batches = _interrupted("profile --ckpt", [
+            "profile", "-L", shufp, "-r", sres["markerdb"], "-o", prof,
+            "--ckpt", "--device", "cuda", fq], sketch, "sketch_codes", 4)
+        secs["profile --ckpt (crash + resume)"] = time.time() - t
+        nbatch = sum(1 for _ in native.stream_fastq(
+            fq, 0, pipeline.STREAM_BATCH_BASES, copy=False))
+        check(batches == nbatch - 4,
+              f"profile --ckpt resumed {batches} of {nbatch} batches")
+        _same_files(prof, sres["profile"], PROFILE_TSVS, "profile --ckpt")
+        check(not os.path.exists(os.path.join(prof, "qry.co",
+                                              ".stage1_ckpt")),
+              "profile --ckpt left its checkpoint dir")
+    finally:
+        pipeline.CKPT_GROUP, pipeline.CKPT_EVERY = ckgroup, ckevery
+    print(f"  --ckpt: dist resumed {groups} of {N_GENOMES // 64} groups, "
+          f"profile {batches} of {nbatch} batches; outputs byte-identical "
+          "to phase 4's", flush=True)
+
+    # profile --shard-db 1: K3 matches the sample's ids on the card
+    shard = os.path.join(work, "profile_shard")
+    sketch_cuda.reset_launches()
+    secs["profile --shard-db 1"] = run_cli("profile --shard-db 1", [
+        "profile", "-L", shufp, "-r", sres["markerdb"], "-o", shard,
+        "--shard-db", "1", "--device", "cuda", fq])
+    sd_launches = dict(sketch_cuda.LAUNCHES)
+    print(f"  shard-db launches {sd_launches}", flush=True)
+    _same_files(shard, sres["profile"], PROFILE_TSVS, "profile --shard-db 1")
+    ref = CoDir.read(sres["markerdb"], want_abund=False)
+    qry = CoDir.read(os.path.join(shard, "qry.co"))
+    index = [v for k, v in composite._INDEX_CACHE.items()
+             if k[0] == os.path.abspath(sres["markerdb"]) and k[3] == 1]
+    check(len(index) == 1, f"{len(index)} shard-db indexes staged")
+    comps = [c for c in range(ref.stat.comp_num)
+             if index[0][c] is not None and qry.ids[c].size]
+    check(comps and sd_launches["member"] == len(comps)
+          and sd_launches["member_index"] == len(comps),
+          f"K3 and its index must launch once per component ({len(comps)})"
+          f" in profile --shard-db 1: {sd_launches}")
+    calls = {f"c{c}": (index[0][c].nk, int(qry.ids[c].size)) for c in comps}
+    print("  profile --shard-db 1 K3 calls (haystack x needles): "
+          + ", ".join(f"{k} {h} x {n}" for k, (h, n) in calls.items())
+          + "; TSVs byte-identical to phase 4's profile", flush=True)
+    hay = index[0][comps[0]].hay
+    x = merge.u32_tensor(np.sort(np.asarray(qry.ids[comps[0]]))) \
+        .to(hay.device)
+    err = _k3_vs_plain("profile --shard-db 1", hay.hay, None, x, hay.index)
+    k3 = _k3_record("profile --shard-db 1", hay.hay, x, hay.index)
+    k3["err"] = err
+    print("  seconds: " + json.dumps({k: round(v, 4)
+                                      for k, v in secs.items()}), flush=True)
+    return {"byread_launches": br_launches, "shard_launches": sd_launches,
+            "k3": k3, "k3_calls": calls, "seconds": secs}
 
 
 def make_search_queries(work: str, gdir: str, seed: int):
@@ -913,13 +1159,19 @@ def _real_chain(work: str, sres: dict) -> None:
         run_cli(f"chain composite -q -b --device {dev}", [
             "composite", "-r", d["mk"], "-q", qco, "-b", "-o", d["abv"],
             "--device", dev])
+        d["shard"] = os.path.join(work, f"chain_{dev}_shard.tsv")
+        _run_cli_to(f"chain composite -q --shard-db 1 --device {dev}", [
+            "composite", "-r", d["mk"], "-q", qco, "--shard-db", "1",
+            "--device", dev], d["shard"])
         out[dev] = d
     for k in ("pan", "uq", "mk", "abv"):
         _same_dirs(out["cuda"][k], out["cpu"][k], f"chain {k}")
-    with open(out["cuda"]["tsv"], "rb") as a, \
-            open(out["cpu"]["tsv"], "rb") as b:
+    with open(out["cuda"]["tsv"], "rb") as a:
         text = a.read()
-        check(text == b.read() and text, "chain composite TSVs differ")
+    for dev, k in (("cpu", "tsv"), ("cuda", "shard"), ("cpu", "shard")):
+        with open(out[dev][k], "rb") as b:
+            check(text and text == b.read(), f"chain composite TSVs differ "
+                                              f"({dev} {k})")
     reported = {ln.split("\t")[1] for ln in text.decode().splitlines()}
 
     def taxon_of(path):
@@ -935,8 +1187,8 @@ def _real_chain(work: str, sres: dict) -> None:
            f"unsampled taxa reported: {sorted(reported - sampled)}")
     print(f"  chain: {len(reported)} taxa reported, all sampled; the "
           f"{len(want)} taxa holding a genome of coverage >= 1x all "
-          "present; TSVs, .abv files and set dirs byte-identical between "
-          "devices", flush=True)
+          "present; TSVs (also --shard-db 1), .abv files and set dirs "
+          "byte-identical between devices", flush=True)
 
 
 def phase_set(work: str, seed: int, sres: dict) -> dict:
@@ -1171,6 +1423,7 @@ def phase_probes() -> list:
     from metakssd_tpu_torch.probes import (probe_floor_chunk,
                                            probe_floor_noread,
                                            probe_kernel_cost, probe_r4)
+    from metakssd_tpu_torch.ops.probe import out_rows
     from metakssd_tpu_torch.probes._common import graph_ms, vary
     from metakssd_tpu_torch.probes.bench_member import time_ms
 
@@ -1200,30 +1453,50 @@ def phase_probes() -> list:
         check(torch.equal(got, want), f"{pid} {v.name}: kernel != plain")
         plain_ms = time_ms(lambda: v.plain(v.tiles), 2)
         # the card's time per dispatch: the path's K dispatches replayed
-        # from a CUDA graph (the path's own time includes the host's)
+        # from a CUDA graph (the path's own time includes the host's), in
+        # PROBE_REPLAYS timings taken in turns with torch.sum's
         inputs = vary(v.tiles)
-        ms = graph_ms(v.run, inputs, 5)
-        lib_ms = None
-        if v.library is not None:
+        library = v.library
+        if library is not None:
             try:
-                lib_ms = graph_ms(v.library, inputs, 5)
+                graph_ms(library, inputs, 1)
             except (RuntimeError, TypeError) as e:
                 print(f"  {pid} {v.name}: no torch.sum for "
                       f"{v.tiles.dtype} here ({e})", flush=True)
+                library = None
+        # a sum's dispatch zeroes its output before the kernel adds into
+        # it (probe.out_rows), where torch.sum is one kernel: that zeroing
+        # is timed alone in the same turns
+        runs, lib_runs, zero_runs = [], [], []
+        for _ in range(PROBE_REPLAYS):
+            runs.append(graph_ms(v.run, inputs, 5))
+            if library is not None:
+                lib_runs.append(graph_ms(library, inputs, 5))
+                zero_runs.append(graph_ms(out_rows, inputs, 5))
         del inputs
+        ms = statistics.median(runs)
+        lib_ms = statistics.median(lib_runs) if lib_runs else None
         bound_ms, bound_by = _bound(v.nbytes, v.ops)
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"  {pid} {v.name:30s} {ms:8.4f} ms on the card "
-              f"({r['ms']:.4f} per path dispatch)  plain {plain_ms:9.4f}  "
+        lib = "none" if lib_ms is None else \
+            f"{lib_ms:.4f} ({min(lib_runs):.4f}-{max(lib_runs):.4f}; " \
+            f"the output's zeroing {statistics.median(zero_runs):.4f})"
+        print(f"  {pid} {v.name:30s} {ms:8.4f} ms on the card (median of "
+              f"{PROBE_REPLAYS}, {min(runs):.4f}-{max(runs):.4f}; "
+              f"{r['ms']:.4f} per path dispatch)  plain {plain_ms:9.4f}  "
               f"torch.sum {lib}  bound {bound_ms:.4f} ({bound_by}: "
               f"{v.nbytes} B, {v.ops} ops)  launches {r['launches']}  "
               "== plain", flush=True)
         out.append({"name": f"{pid} {v.kernel}: {v.name}", "route": "cuda",
                     "source": "metakssd_tpu_torch/csrc/probe.cu",
                     "replaces": v.replaces, "launches": r["launches"],
-                    "max_abs_err": err, "ms": ms, "path_ms": r["ms"],
+                    "max_abs_err": err, "ms": ms,
+                    "ms_range": [min(runs), max(runs)], "path_ms": r["ms"],
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": lib_ms})
+                    "bound_by": bound_by, "library_ms": lib_ms,
+                    "library_ms_range": [min(lib_runs), max(lib_runs)]
+                    if lib_runs else None,
+                    "zeroing_ms": statistics.median(zero_runs)
+                    if zero_runs else None})
         del got, want
     del runs
     torch.cuda.empty_cache()
@@ -1298,6 +1571,10 @@ def main(argv=None) -> int:
         _phase("slice", t0)
 
         t0 = time.time()
+        fres = phase_stage1_flags(work, args.seed, sres)
+        _phase("stage1-flags", t0)
+
+        t0 = time.time()
         qres = phase_search(work, args.seed)
         _phase("search", t0)
 
@@ -1324,41 +1601,53 @@ def main(argv=None) -> int:
     # K3's headline numbers stay those of 4.19M x 1M (identity mode); the
     # record carries every shape's (phase_member)
     k3 = mres["shapes"][0]
-    launches = {k: qres["launches"][k] + setres["launches"][k]
-                for k in ("member", "member_index")}
+    # launches per leg of the main paths, each counted from 0
+    sketch_legs = {"profile": sres["launches"],
+                   "dist --byread": fres["byread_launches"]}
+    k3_legs = {"dist -r": qres["launches"], "set": setres["launches"],
+               "profile --shard-db 1": fres["shard_launches"]}
+
+    def by_leg(legs, name):
+        return {leg: n[name] for leg, n in legs.items()}
+    shapes = [{k: r[k] for k in (
+        "shape", "nh", "nn", "ops", "k3_ms", "k3_events_ms", "plain_ms",
+        "library_ms", "library_events_ms", "bound_ms", "bound_by")}
+        for r in mres["shapes"] + [fres["k3"]]]
     print(json.dumps({"kernels": [
         {"name": "sketch_compact (K1)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/sketch.cu",
          "replaces": "metakssd_tpu/ops/sketch_pallas.py:323",
-         "launches": sres["launches"]["sketch_compact"],
+         "launches": sum(by_leg(sketch_legs, "sketch_compact").values()),
+         "launches_by_leg": by_leg(sketch_legs, "sketch_compact"),
          "max_abs_err": kres["k1_err"], "ms": t["k1"],
          "plain_ms": t["k1_plain"], "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "sketch_full (K2)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/sketch.cu",
          "replaces": "metakssd_tpu/ops/sketch_pallas.py:298",
-         "launches": sres["launches"]["sketch_full"],
+         "launches": sum(by_leg(sketch_legs, "sketch_full").values()),
+         "launches_by_leg": by_leg(sketch_legs, "sketch_full"),
          "max_abs_err": kres["k2_err"], "ms": t["k2"],
          "plain_ms": t["k2_plain"], "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
         {"name": "member (K3)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/member.cu",
          "replaces": "metakssd_tpu/ops/merge_device.py:29",
-         "launches": launches["member"], "max_abs_err": mres["err"],
+         "launches": sum(by_leg(k3_legs, "member").values()),
+         "launches_by_leg": by_leg(k3_legs, "member"),
+         "max_abs_err": max(mres["err"], fres["k3"]["err"]),
          "ms": k3["k3_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-         "library_ms": k3["library_ms"],
-         "shapes": [{k: r[k] for k in (
-             "shape", "nh", "nn", "ops", "k3_ms", "k3_events_ms",
-             "plain_ms", "library_ms", "bound_ms", "bound_by")}
-             for r in mres["shapes"]],
-         "search_calls": qres["k3_calls"], "set_calls": setres["k3_calls"]},
+         "library_ms": k3["library_ms"], "shapes": shapes,
+         "search_calls": qres["k3_calls"], "set_calls": setres["k3_calls"],
+         "shard_db_calls": fres["k3_calls"]},
         # K3's set-up, no TPU kernel: the anchor pass of sorted_membership
         # was a host search; timed at the set -s haystack, the largest
         {"name": "member_index (K3 index build)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/member.cu",
          "replaces": "metakssd_tpu/ops/merge.py:147",
-         "launches": launches["member_index"],
+         "launches": sum(by_leg(k3_legs, "member_index").values()),
+         "launches_by_leg": by_leg(k3_legs, "member_index"),
          "max_abs_err": mres["index_err"],
          "ms": mres["shapes"][-1]["index_ms"],
          "plain_ms": mres["shapes"][-1]["index_plain_ms"],
@@ -1366,8 +1655,9 @@ def main(argv=None) -> int:
          "bound_by": mres["shapes"][-1]["index_bound_by"],
          "library_ms": mres["shapes"][-1]["index_library_ms"],
          "shapes": [{k: r[k] for k in (
-             "shape", "nh", "nb", "index_ms", "index_plain_ms",
-             "index_library_ms", "index_bound_ms")}
+             "shape", "nh", "nb", "index_ms", "index_graph_ms",
+             "index_read_ms", "index_plain_ms", "index_library_ms",
+             "index_library_graph_ms", "index_bound_ms")}
              for r in mres["shapes"]]},
         *probes,
     ]}), flush=True)

@@ -21,8 +21,9 @@ command_composite.c:32-63).  ``--device`` is ``cuda`` (default) or
 ``cpu``; ``cpu`` runs the plain PyTorch version of every kernel.  The
 verbs that do host work only (``shuffle``, ``reverse``, ``postprocess``,
 ``primer``) take no ``--device``; their handlers are copied from
-``metakssd_tpu.cli``.  Options whose paths are not ported yet raise
-NotImplementedError naming their ROADMAP.md item.
+``metakssd_tpu.cli``.  Options whose paths are not ported yet (``--mesh``
+above 1, ``--shard-db`` above 1) raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -73,8 +74,8 @@ def _cmd_shuffle(args) -> int:
 
 def _cmd_dist(args) -> int:
     """The branches of ``metakssd_tpu.cli._cmd_dist`` (cli.py:42-139):
-    stage I, stage II, stage I + II, search, sketch-then-search and the
-    combination of several sketch dirs."""
+    stage I (``--byread``: per-read), stage II, stage I + II, search,
+    sketch-then-search and the combination of several sketch dirs."""
     from metakssd_tpu_torch import dist, pipeline, setops
     from metakssd_tpu_torch.formats import mco as mco_fmt
     from metakssd_tpu_torch.formats.costat import CO_DSTAT, MCO_DSTAT
@@ -87,7 +88,6 @@ def _cmd_dist(args) -> int:
         min_occ=args.LstKmerOcrs, min_qual=args.quality,
         byread=args.byread, pipecmd=args.pipecmd, threads=args.threadN,
         keepcofile=args.keepcofile, mesh=args.mesh, ckpt=args.ckpt)
-    pipeline.check_supported(opts)
 
     def has(d, f):
         return os.path.isdir(d) and os.path.exists(os.path.join(d, f))
@@ -142,7 +142,12 @@ def _cmd_dist(args) -> int:
     inputs = organize_infiles(queries, args.list)
     if not inputs:
         sys.exit("please specify the input/query files")
-    pipeline.run_stage1(inputs, shuf, outdir, opts, device=args.device)
+    if opts.byread:
+        if len(inputs) != 1:
+            sys.exit("--byread takes one input file")
+        pipeline.sketch_byread(inputs[0], shuf, outdir, device=args.device)
+    else:
+        pipeline.run_stage1(inputs, shuf, outdir, opts, device=args.device)
     return 0
 
 
@@ -317,7 +322,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="min shared k-mers to report a species (reference "
                          "MIN_KM_S macro: 6 default, 1 in the 16S build)")
     co.add_argument("--shard-db", type=int, default=0, dest="shard_db",
-                    help="more than one device is not ported yet")
+                    help="1: match the query ids on the device (K3); "
+                         "more than one device is not ported yet")
     co.add_argument("--dense", action="store_true",
                     help="batched dense search for -s on --device (last-"
                          "ulp value differences vs the sparse path)")

@@ -1,13 +1,18 @@
 """MarkerDB taxonomic profiling on a device, and the host-side abv index
 and search: the port of ``metakssd_tpu/composite.py``.
 
-Profiling (``get_species_abundance``, composite.py:262-412) takes the
-device route only.  The MarkerDB's inverted index is built as the JAX
+Profiling (``get_species_abundance``, composite.py:262-412) takes one of
+two device routes.  The MarkerDB's inverted index is built as the JAX
 package builds it: ``stage_markerdb`` inverts it (or mmaps its
-``.mkssd_stage`` sidecars, the same files) and
+``.mkssd_stage`` sidecars, the same files).  By default
 ``state.profile_index_from_staged`` moves it onto the device once per
-MarkerDB.  Per query, the port's ``DeviceProfileIndex`` returns the exact
-``postings_group_stats`` tuple; the report lines and the ``binvec``
+MarkerDB, and per query the port's ``DeviceProfileIndex`` returns the
+exact ``postings_group_stats`` tuple.  With ``shard_db == 1`` each
+component's distinct k-mers go onto the device as a
+``parallel/mesh.ShardedMatchIndex``, K3 matches the query ids there, and
+the host expands the postings and takes the statistics (the native
+``postings_group_stats``, else numpy and ``_profile_stats``), as the JAX
+package's ``shard_db`` route does.  The report lines and the ``binvec``
 vectors are formatted as the JAX package formats them, byte for byte.
 
 ``index_abv``, ``abv_search`` and ``read_abv`` (``-i``, ``-s``, ``-d``)
@@ -34,11 +39,35 @@ from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.formats.mco import save_npy_direct
 from metakssd_tpu_torch.io import native as native_io
 from metakssd_tpu_torch.params import MIN_KM_S
+from metakssd_tpu_torch.parallel import mesh as pmesh
 from metakssd_tpu_torch.state import profile_index_from_staged
 from metakssd_tpu_torch.utils import TIMER, sorted_first_idx
 
 ST_PCTL = 0.98
 ED_PCTL = 0.99
+
+
+def _profile_stats(matched_ab: np.ndarray):
+    """Reference per-genome statistics (command_composite.c:596-624) on a
+    1-based sorted array, C-indexing semantics preserved."""
+    n = matched_ab.size
+    s1 = np.empty(n + 1, dtype=np.int64)
+    s1[0] = n
+    s1[1:] = np.sort(matched_ab)
+    total = int(s1[1:].sum())
+    median = int(s1[n // 2])
+    p0 = int(n * ST_PCTL)
+    lastsum = 0
+    lastn = 0
+    i = p0
+    while i <= n * ED_PCTL:
+        lastsum += int(s1[i])
+        lastn += 1
+        i += 1
+    avg = np.float32(total) / np.float32(n)
+    avg9899 = np.float32(lastsum) / np.float32(lastn) if lastn \
+        else np.float32("nan")
+    return total, avg, avg9899, median, int(s1[n])
 
 
 class _CompIndex:
@@ -207,28 +236,37 @@ def wait_staging() -> None:
 _INDEX_CACHE: dict = {}
 
 
-def _profile_index(refdir: str, ref: CoDir, device):
+def _staged_index(refdir: str, ref: CoDir, device, shard_db: int):
+    """A MarkerDB's index on ``device``, built once per MarkerDB, device
+    and route: the ``DeviceProfileIndex`` (``shard_db`` 0), or per
+    component a one-shard ``ShardedMatchIndex`` (``shard_db`` 1; None for
+    an empty component)."""
     stat_path = os.path.join(refdir, "cofiles.stat")
-    key = (os.path.abspath(refdir), os.path.getmtime(stat_path), str(device))
-    dpi = _INDEX_CACHE.get(key)
-    if dpi is None:
+    key = (os.path.abspath(refdir), os.path.getmtime(stat_path), str(device),
+           shard_db)
+    got = _INDEX_CACHE.get(key)
+    if got is None:
         with TIMER.stage("composite.stage_markerdb"):
             comp_idx = stage_markerdb(refdir, ref)
-        dpi = profile_index_from_staged(comp_idx, ref.stat.infile_num,
-                                        device)
-        _INDEX_CACHE[key] = dpi
-    return dpi
+        if shard_db:
+            got = [None if ci is None else pmesh.ShardedMatchIndex(
+                ci.rk, ci.starts, ci.gid_sorted, device, shard_db)
+                for ci in comp_idx]
+        else:
+            got = profile_index_from_staged(comp_idx, ref.stat.infile_num,
+                                            device)
+        _INDEX_CACHE[key] = got
+    return got
 
 
 def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
                           binvec: bool = False, min_km_s: int = MIN_KM_S,
                           out=None, shard_db: int = 0, *, device) -> None:
     """Profile query metagenome sketches against a MarkerDB
-    (reference get_species_abundance, command_composite.c:446-649)."""
-    if shard_db >= 1:
-        raise NotImplementedError(
-            "--shard-db is not ported to metakssd_tpu_torch yet "
-            "(ROADMAP.md, port queue item 8)")
+    (reference get_species_abundance, command_composite.c:446-649).
+    ``shard_db`` 1 matches on the device with K3 and takes the statistics
+    on the host; more than one shard is not ported yet."""
+    pmesh.check_shards(shard_db)
     dev = resolve_device(device)
     out = out or sys.stdout
     with TIMER.stage("composite.load"):
@@ -241,7 +279,7 @@ def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
               f"not match ref shuf_id: {ref.stat.shuf_id}", file=sys.stderr)
 
     nref = ref.stat.infile_num
-    dpi = _profile_index(refdir, ref, dev)
+    index = _staged_index(refdir, ref, dev, shard_db)
     TIMER.count("composite.queries", qry.stat.infile_num)
     TIMER.count("composite.refs", nref)
 
@@ -253,20 +291,47 @@ def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
             qab = qry.genome_abund(c, qn)
             order = np.argsort(qids, kind="stable")
             pcq.append((qids[order], qab[order]))
-        counts, sums, lastsum, lastn, median_a, max_a = dpi.group_stats(
-            pcq, ST_PCTL, ED_PCTL)
+        if shard_db:
+            # K3 matches each component's ids; the host expands the
+            # postings and takes the statistics
+            matched = [index[c].match(qids_s, qab_s)
+                       for c, (qids_s, qab_s) in enumerate(pcq)
+                       if qids_s.size and index[c] is not None]
+            all_g = (np.concatenate([g for g, _ in matched]) if matched
+                     else np.zeros(0, np.int32))
+            all_ab = (np.concatenate([a for _, a in matched]) if matched
+                      else np.zeros(0, np.uint16))
+            stats = native_io.postings_group_stats(all_g, all_ab, nref,
+                                                   ST_PCTL, ED_PCTL)
+        else:
+            stats = index.group_stats(pcq, ST_PCTL, ED_PCTL)
+        if stats is not None:
+            counts, sums, lastsum, lastn, median_a, max_a = stats
 
-        def stats_for(rn_i: int):
-            tot = int(sums[rn_i])
-            cnt = int(counts[rn_i])
-            ln = int(lastn[rn_i])
-            # float32 divisions here so rounding matches the reference;
-            # cnt == 0 -> NaN on purpose (the reference's 0/0)
-            with np.errstate(invalid="ignore", divide="ignore"):
-                avg = np.float32(tot) / np.float32(cnt)
-            avg9899 = (np.float32(int(lastsum[rn_i])) / np.float32(ln)
-                       if ln else np.float32("nan"))
-            return tot, avg, avg9899, int(median_a[rn_i]), int(max_a[rn_i])
+            def stats_for(rn_i: int):
+                tot = int(sums[rn_i])
+                cnt = int(counts[rn_i])
+                ln = int(lastn[rn_i])
+                # float32 divisions here so rounding matches the
+                # reference; cnt == 0 -> NaN on purpose (its 0/0)
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    avg = np.float32(tot) / np.float32(cnt)
+                avg9899 = (np.float32(int(lastsum[rn_i])) / np.float32(ln)
+                           if ln else np.float32("nan"))
+                return tot, avg, avg9899, int(median_a[rn_i]), \
+                    int(max_a[rn_i])
+        else:
+            # no host library: group the matched abundances by genome once
+            counts = np.bincount(all_g, minlength=nref).astype(np.int64)
+            gorder = np.argsort(all_g, kind="stable")
+            ab_sorted = all_ab[gorder]
+            gstarts = np.searchsorted(all_g[gorder],
+                                      np.arange(nref + 1, dtype=np.int64))
+
+            def stats_for(rn_i: int):
+                return _profile_stats(
+                    ab_sorted[gstarts[rn_i]:gstarts[rn_i + 1]]
+                    .astype(np.int64))
 
         # sort refs by shared count desc, ties stable (glibc mergesort)
         order = np.argsort(-counts, kind="stable")

@@ -164,6 +164,13 @@ def _load():
         ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32),
         ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32),
         ctypes.POINTER(ctypes.c_int32)]
+    lib.postings_group_stats.restype = None
+    lib.postings_group_stats.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint16),
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
     lib.format_name_float_lines.restype = ctypes.c_int64
     lib.format_name_float_lines.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
@@ -339,6 +346,27 @@ def postings_count_ranges(st: np.ndarray, en: np.ndarray,
         acc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
         ctypes.c_int64(acc.size))
     return True
+
+
+def postings_group_stats(gids: np.ndarray, ab: np.ndarray, nref: int,
+                         st_pctl: float, ed_pctl: float):
+    """Per-genome reference profile stats over unordered matched
+    postings: (count, sum, lastsum, lastn, median, max) int64 arrays,
+    or None if the lib is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    gids = np.ascontiguousarray(gids, dtype=np.int32)
+    ab = np.ascontiguousarray(ab, dtype=np.uint16)
+    outs = [np.empty(nref, dtype=np.int64) for _ in range(6)]
+    ptrs = [o.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+            for o in outs]
+    lib.postings_group_stats(
+        gids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ab.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        ctypes.c_int64(gids.size), ctypes.c_int64(nref),
+        ctypes.c_double(st_pctl), ctypes.c_double(ed_pctl), *ptrs)
+    return tuple(outs)
 
 
 def kv_radix_sort(keys: np.ndarray, vals: np.ndarray):

@@ -142,3 +142,17 @@ def fastq_to_codes(path: str, min_qual: int = 0,
     # read_index points at read starts; strip the trailing separator pos
     starts = read_index.copy()
     return codes, starts
+
+
+def pipecmd_to_codes(pipecmd: str, path: str, min_qual: int = 0
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Run '<pipecmd> <path>' and parse its stdout as fastq (the
+    reference assumes pipecmd emits fastq, iseq2comem.c:377).  Returns
+    (codes, read_starts)."""
+    import subprocess
+    import tempfile
+    with tempfile.NamedTemporaryFile(suffix=".fq") as tf:
+        subprocess.run(f"{pipecmd} {path}", shell=True, check=True,
+                       stdout=tf)
+        tf.flush()
+        return fastq_to_codes(tf.name, min_qual=min_qual)

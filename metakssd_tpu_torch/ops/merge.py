@@ -96,9 +96,12 @@ def build_index_plain(hay: torch.Tensor) -> MemberIndex:
     return MemberIndex(_as_u32_bits(table), nb, shift)
 
 
-def build_index(hay: torch.Tensor) -> MemberIndex:
+def build_index(hay: torch.Tensor, max_key: int | None = None
+                ) -> MemberIndex:
     """The index of a sorted haystack on its device: the plain version on
-    the CPU, ``mkssd_member_index`` on CUDA (no launch without a table)."""
+    the CPU, ``mkssd_member_index`` on CUDA (no launch without a table).
+    ``max_key``, the haystack's largest key where the caller holds it on
+    the host, spares the read of its last entry (a sync on CUDA)."""
     if hay.dtype != torch.int32 or hay.dim() != 1 or not hay.is_contiguous():
         raise ValueError("haystack must be a contiguous 1-D int32 tensor "
                          "of u32 bits")
@@ -106,7 +109,8 @@ def build_index(hay: torch.Tensor) -> MemberIndex:
         return build_index_plain(hay)
     if hay.device.type != "cuda":
         raise ValueError(f"no index kernel for device {hay.device}")
-    nb, shift = index_shape(hay.numel(), _max_key(hay))
+    nb, shift = index_shape(hay.numel(),
+                            _max_key(hay) if max_key is None else max_key)
     table = torch.empty(nb + 1 if nb else 0, dtype=torch.int32,
                         device=hay.device)
     if nb:
@@ -132,11 +136,13 @@ class StaticHaystack:
 
     def __init__(self, haystack, values=None, device="cpu"):
         self.device = resolve_device(device)
+        haystack = np.asarray(haystack, dtype=np.uint32)
         self.hay = u32_tensor(haystack).to(self.device)
         self.identity = values is None
         self.values = None if self.identity \
             else u32_tensor(values).to(self.device)
-        self.index = build_index(self.hay) \
+        self.index = build_index(
+            self.hay, int(haystack[-1]) if haystack.size else 0) \
             if self.device.type == "cuda" else None
 
 

@@ -219,7 +219,9 @@ def _cuda(tiles: torch.Tensor, name: str):
             torch.cuda.current_stream(tiles.device).cuda_stream)
 
 
-def _out(tiles: torch.Tensor) -> torch.Tensor:
+def out_rows(tiles: torch.Tensor) -> torch.Tensor:
+    """A kernel's zeroed [blocks, 1, LANES] int32 result (the sums add
+    into it)."""
     return torch.zeros((tiles.shape[0], 1, LANES), dtype=torch.int32,
                        device=tiles.device)
 
@@ -240,7 +242,7 @@ def floor(tiles: torch.Tensor, row0: int, row1: int,
     lib, stream = _cuda(tiles, "floor")
     if tiles.dtype not in _TILE_TYPES or op not in OPS:
         raise ValueError(f"floor: no kernel for {tiles.dtype} tiles, op {op}")
-    out = _out(tiles)
+    out = out_rows(tiles)
     _raise_on(lib.mkssd_probe_floor(
         tiles.data_ptr(), _TILE_TYPES[tiles.dtype], tiles.shape[0],
         tiles.shape[1], row0, row1, OPS[op], out.data_ptr(), stream),
@@ -257,7 +259,7 @@ def winmath(tiles: torch.Tensor, nrows: int, TL: int) -> torch.Tensor:
     lib, stream = _cuda(tiles, "winmath")
     if tiles.dtype not in (torch.int32, torch.int8):
         raise ValueError(f"winmath: no kernel for {tiles.dtype} tiles")
-    out = _out(tiles)
+    out = out_rows(tiles)
     _raise_on(lib.mkssd_probe_winmath(
         tiles.data_ptr(), _TILE_TYPES[tiles.dtype], tiles.shape[0],
         tiles.shape[1], nrows, TL, out.data_ptr(), stream),
@@ -278,7 +280,7 @@ def gather(tiles: torch.Tensor, nrows: int, table: torch.Tensor, size: int,
             or not table.is_contiguous() or table.numel() < size:
         raise ValueError("gather: int32 tiles and a contiguous int32 or "
                          f"uint16 table of >= {size} entries on one device")
-    out = _out(tiles)
+    out = out_rows(tiles)
     _raise_on(lib.mkssd_probe_gather(
         tiles.data_ptr(), tiles.shape[0], tiles.shape[1], nrows,
         table.data_ptr(), _TILE_TYPES[table.dtype], size, mult, ng,
@@ -307,7 +309,7 @@ def search(tiles: torch.Tensor, nrows: int, k: int, subk: int, drlevel: int,
                 or sig.shape[1] != LANES:
             raise ValueError("search: lev needs 7 rows of 128, sig "
                              "[words, 128]")
-    out = _out(tiles)
+    out = out_rows(tiles)
     _raise_on(lib.mkssd_probe_search(
         tiles.data_ptr(), tiles.shape[0], tiles.shape[1], nrows, k, subk,
         drlevel, None if accept is None else accept.data_ptr(),

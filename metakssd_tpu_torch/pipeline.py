@@ -1,8 +1,9 @@
 """Stage I on a device: sequence files -> combined sketch directory.
 
-The port of ``metakssd_tpu/pipeline.py`` (``run_stage1``, ``sketch_file``,
-the streaming fastq path and the batched multi-file path), with its
-options, input listing and ``-L`` handling.  Parsing, the unique/count
+The port of ``metakssd_tpu/pipeline.py`` (``run_stage1``, ``sketch_file``
+with ``-P``, the streaming fastq path, the batched multi-file path,
+``--byread`` and the ``--ckpt`` snapshots), with its options, input
+listing and ``-L`` handling.  Parsing, the unique/count
 tail and the on-disk format are the port's copies of the JAX package's
 host code; the window sketch runs through ``ops/sketch.py`` on the named
 device.  The output directory is byte-identical to
@@ -12,7 +13,9 @@ device.  The output directory is byte-identical to
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import shutil
 
 import numpy as np
 
@@ -32,6 +35,10 @@ ACCEPT_EXTS = seqio.FASTA_EXTS + seqio.FASTQ_EXTS
 
 # Bases per streamed fastq batch (reads never split across batches).
 STREAM_BATCH_BASES = 64 << 20
+# --ckpt: streamed batches between persisted snapshots, and files per
+# batched-sketch group (a crash loses at most one group's work).
+CKPT_EVERY = 8
+CKPT_GROUP = 64
 
 
 @dataclasses.dataclass
@@ -86,42 +93,96 @@ def resolve_shuffle(dr_file: str | None, k: int, drlevel: int,
 def check_supported(opts: SketchOptions) -> None:
     """Raise for options whose code paths are not ported yet, naming
     their item in ROADMAP.md's port queue."""
-    for flag, item, on in (("--byread", 1, opts.byread),
-                           ("--ckpt", 2, opts.ckpt),
-                           ("--mesh", 3, opts.mesh > 1),
-                           ("-P/--pipecmd", 4, bool(opts.pipecmd))):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to metakssd_tpu_torch yet "
-                f"(ROADMAP.md, port queue item {item})")
+    if opts.mesh > 1:
+        raise NotImplementedError(
+            "--mesh is not ported to metakssd_tpu_torch yet "
+            "(ROADMAP.md, port queue item 3)")
+
+
+def _ckpt_key(path: str, shuf, mode: str, min_qual: int) -> dict:
+    st = os.stat(path)
+    return {"file": os.path.abspath(path), "size": st.st_size,
+            "mtime": st.st_mtime, "shuf_id": shuf.params.shuf_id,
+            "mode": mode, "min_qual": min_qual,
+            "batch_bases": STREAM_BATCH_BASES}
+
+
+def _ckpt_save(ckpt_file: str, payload: dict) -> None:
+    """Atomic checkpoint write (tmp + rename): a crash mid-save leaves
+    the previous snapshot intact."""
+    tmp = ckpt_file + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, ckpt_file)
+
+
+def _ckpt_load(ckpt_file: str, key: dict):
+    if not os.path.exists(ckpt_file):
+        return None
+    try:
+        z = np.load(ckpt_file, allow_pickle=False)
+        if json.loads(str(z["key"])) != key:
+            return None
+        return z
+    except (OSError, ValueError, KeyError):
+        return None
 
 
 def _sketch_fastq_streaming(path: str, shuf, mode: str, min_occ: int,
-                            min_qual: int, device, tables):
+                            min_qual: int, device, tables,
+                            ckpt_file: str | None = None):
     """Sketch a fastq of any size with O(batch) host memory: fixed-size
     read batches from the native parser go to the device one at a time,
     each batch's accepted drtuples accumulate, and unique/count runs once
     at the end.  The parser's batch buffer is reused by the next
-    ``next()``; ``sketch_codes`` has copied it before returning."""
+    ``next()``; ``sketch_codes`` has copied it before returning.
+
+    With ``ckpt_file``, the accumulated drtuples persist every
+    CKPT_EVERY batches; a restart parses the batches already sketched
+    again but skips their sketch.  The snapshot's keys are the JAX
+    package's, so either package resumes the other's."""
+    key = _ckpt_key(path, shuf, mode, min_qual)
+    done = 0
     parts = []
-    for codes, _ in native.stream_fastq(path, min_qual, STREAM_BATCH_BASES,
-                                        copy=False):
+    if ckpt_file:
+        z = _ckpt_load(ckpt_file, key)
+        if z is not None:
+            done = int(z["done"])
+            parts = [z["dr"].astype(np.uint64)]
+    for i, (codes, _) in enumerate(native.stream_fastq(
+            path, min_qual, STREAM_BATCH_BASES, copy=False)):
+        if i < done:
+            continue
         parts.append(sketch.sketch_codes(codes, shuf, device, tables))
+        if ckpt_file and (i + 1 - done) % CKPT_EVERY == 0:
+            _ckpt_save(ckpt_file, {"key": np.str_(json.dumps(key)),
+                                   "done": np.int64(i + 1),
+                                   "dr": np.concatenate(parts)})
     dr = np.concatenate(parts) if parts else np.zeros(0, np.uint64)
+    if ckpt_file and os.path.exists(ckpt_file):
+        os.remove(ckpt_file)
     return sets_from_drtuples(dr, shuf.params, mode=mode, min_occ=min_occ)
 
 
-def sketch_file(path: str, shuf, opts: SketchOptions, device, tables=None
+def sketch_file(path: str, shuf, opts: SketchOptions, device, tables=None,
+                ckpt_file: str | None = None
                 ) -> list[tuple[np.ndarray, np.ndarray | None]]:
     """Sketch one input file into per-component (ids, counts)."""
     check_supported(opts)
+    if opts.pipecmd:
+        # reference treats piped input as fastq (command_dist.c:378)
+        codes, _ = seqio.pipecmd_to_codes(
+            opts.pipecmd, path,
+            min_qual=0 if opts.abundance else opts.min_qual)
+        return sketch.sketch_to_sets(codes, shuf, device,
+                                     mode="koc" if opts.abundance else "occ",
+                                     min_occ=opts.min_occ, tables=tables)
     if seqio.sniff_format(path) == "fastq":
         mode = "koc" if opts.abundance else "occ"
         # reference -A path (mt_shortreads2koc) has no quality filter
         q = 0 if opts.abundance else opts.min_qual
         if native.available():
             return _sketch_fastq_streaming(path, shuf, mode, opts.min_occ,
-                                           q, device, tables)
+                                           q, device, tables, ckpt_file)
         codes, _ = seqio.fastq_to_codes(path, min_qual=q)
         return sketch.sketch_to_sets(codes, shuf, device, mode=mode,
                                      min_occ=opts.min_occ, tables=tables)
@@ -129,6 +190,48 @@ def sketch_file(path: str, shuf, opts: SketchOptions, device, tables=None
     return sketch.sketch_to_sets(codes, shuf, device,
                                  mode="uniq" if opts.dedup else "set",
                                  min_occ=opts.min_occ, tables=tables)
+
+
+def sketch_byread(path: str, shuf, out_dir: str, *, device, **kw) -> None:
+    """Per-read sketching (reference reads2mco, iseq2comem.c:89-214):
+    the accepted windows of every read in stream order, duplicates kept,
+    in ``combco.{c}``; ``combco.index.{c}`` holds the cumulative per-read
+    counts (u64, reads + 1 entries).  The windows and their positions come
+    from K1 (K2 where a chunk overflows) on ``device``, golden for configs
+    off the kernel path; a stable sort by position gives stream order
+    (``sketch_xla.sketch_codes(stream_order=True)``).  ``kw`` reaches the
+    chunk loop (``chunk_windows``, ``capacity``)."""
+    p = shuf.params
+    if seqio.sniff_format(path) == "fastq":
+        codes, starts = seqio.fastq_to_codes(path)
+        read_starts = starts[:-1]          # one entry per read
+    else:
+        codes, read_starts = seqio.fasta_to_codes(path, return_headers=True)
+    nreads = read_starts.size
+    dr, pos = sketch.sketch_codes_with_positions(
+        codes, shuf, resolve_device(device), **kw)
+    order = np.argsort(pos, kind="stable")
+    dr, pos = dr[order], pos[order]
+    # a window belongs to the read holding its start: reads are
+    # separated by RESETs, so no window spans two reads
+    read_of = np.searchsorted(read_starts, pos, side="right") - 1
+    comp = (dr % np.uint64(p.component_num)).astype(np.int64)
+    ids = (dr >> np.uint64(p.comp_code_bits)).astype(np.uint32)
+    os.makedirs(out_dir, exist_ok=True)
+    for c in range(p.component_num):
+        sel = comp == c
+        ids[sel].tofile(os.path.join(out_dir, f"combco.{c}"))
+        counts = np.bincount(read_of[sel], minlength=nreads)
+        index = np.zeros(nreads + 1, dtype=np.uint64)
+        np.cumsum(counts, out=index[1:])
+        index.tofile(os.path.join(out_dir, f"combco.index.{c}"))
+    # the reference also writes a cofiles.stat for byread dirs (one
+    # "genome" = the input file, ctx counts zeroed; command_dist.c:354),
+    # which reverse -b and CoDir read
+    CoStat(shuf_id=p.shuf_id, koc=False, kmerlen=2 * p.k,
+           dim_rd_len=2 * p.drlevel, comp_num=p.component_num,
+           all_ctx_ct=0, ctx_ct=np.zeros(1, np.uint32),
+           names=[path]).write(out_dir)
 
 
 def _batched_stage1(inputs: list[str], shuf, opts: SketchOptions, koc: bool,
@@ -187,10 +290,57 @@ def _batched_stage1(inputs: list[str], shuf, opts: SketchOptions, koc: bool,
     return per_genome
 
 
+def _file_ckpt_path(ckpt_dir: str, i: int) -> str:
+    return os.path.join(ckpt_dir, f"file{i}.npz")
+
+
+def _file_ckpt_params(path: str, shuf, opts: SketchOptions) -> str:
+    """Everything that changes the sketch of ``path`` keys its snapshot
+    (as ``_ckpt_key`` does a stream's): a rerun with other options
+    sketches again."""
+    return "|".join(str(x) for x in (
+        os.path.abspath(path), shuf.params.shuf_id, opts.abundance,
+        opts.dedup, opts.min_occ, opts.min_qual, opts.byread))
+
+
+def _save_file_ckpt(fp: str, path: str, sets, params: str) -> None:
+    st = os.stat(path)
+    payload = {"size": np.int64(st.st_size), "mtime": np.float64(st.st_mtime),
+               "params": np.array(params), "ncomp": np.int64(len(sets))}
+    for c, (ids, ab) in enumerate(sets):
+        payload[f"ids_{c}"] = np.asarray(ids, dtype=np.uint32)
+        if ab is not None:
+            payload[f"ab_{c}"] = np.asarray(ab)
+    _ckpt_save(fp, payload)
+
+
+def _load_file_ckpt(fp: str, path: str, params: str):
+    if not os.path.exists(fp):
+        return None
+    try:
+        z = np.load(fp, allow_pickle=False)
+        st = os.stat(path)
+        if int(z["size"]) != st.st_size or \
+                float(z["mtime"]) != st.st_mtime or \
+                "params" not in z.files or str(z["params"]) != params:
+            return None
+        return [(z[f"ids_{c}"],
+                 z[f"ab_{c}"] if f"ab_{c}" in z.files else None)
+                for c in range(int(z["ncomp"]))]
+    except (OSError, ValueError, KeyError):
+        return None
+
+
 def run_stage1(inputs: list[str], shuf, out_dir: str,
                opts: SketchOptions | None = None, *, device) -> CoStat:
     """Sketch all inputs on ``device`` and write the combined sketch
-    directory (``metakssd_tpu.pipeline.run_stage1``)."""
+    directory (``metakssd_tpu.pipeline.run_stage1``).
+
+    With ``opts.ckpt``, each file's sets persist under
+    ``out_dir/.stage1_ckpt/file{i}.npz`` as they complete (batched inputs
+    in groups of CKPT_GROUP files; a streamed fastq also every CKPT_EVERY
+    batches in ``stream{i}.ckpt``); a rerun after a crash resumes from
+    them, and the directory goes once the sketch dir is written."""
     opts = opts or SketchOptions()
     check_supported(opts)
     dev = resolve_device(device)
@@ -205,17 +355,46 @@ def run_stage1(inputs: list[str], shuf, out_dir: str,
         koc = False
         opts = dataclasses.replace(opts, abundance=False)
 
-    batchable = (len(inputs) > 1 and
+    batchable = (len(inputs) > 1 and not opts.pipecmd and
                  (not koc or
                   all(seqio.sniff_format(f) == "fastq" for f in inputs)))
+    ckpt_dir = os.path.join(out_dir, ".stage1_ckpt") if opts.ckpt else None
+    if ckpt_dir:
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+    def resumed(i: int):
+        if not ckpt_dir:
+            return None
+        return _load_file_ckpt(_file_ckpt_path(ckpt_dir, i), inputs[i],
+                               _file_ckpt_params(inputs[i], shuf, opts))
+
+    def persist(i: int, sets) -> None:
+        if ckpt_dir:
+            _save_file_ckpt(_file_ckpt_path(ckpt_dir, i), inputs[i], sets,
+                            _file_ckpt_params(inputs[i], shuf, opts))
+
     TIMER.count("stage1.files", len(inputs))
     with TIMER.stage("stage1.sketch"):
+        per_genome: list = [resumed(i) for i in range(len(inputs))]
         if batchable:
-            per_genome = _batched_stage1(inputs, shuf, opts, koc, dev,
-                                         tables)
+            todo = [i for i, g in enumerate(per_genome) if g is None]
+            group = CKPT_GROUP if ckpt_dir else len(todo)
+            for lo in range(0, len(todo), max(group, 1)):
+                idx = todo[lo:lo + group]
+                got = _batched_stage1([inputs[i] for i in idx], shuf, opts,
+                                      koc, dev, tables)
+                for i, sets in zip(idx, got):
+                    per_genome[i] = sets
+                    persist(i, sets)
         else:
-            per_genome = [sketch_file(path, shuf, opts, dev, tables)
-                          for path in inputs]
+            for i, path in enumerate(inputs):
+                if per_genome[i] is not None:
+                    continue
+                sck = (os.path.join(ckpt_dir, f"stream{i}.ckpt")
+                       if ckpt_dir else None)
+                per_genome[i] = sketch_file(path, shuf, opts, dev, tables,
+                                            ckpt_file=sck)
+                persist(i, per_genome[i])
 
     ctx_ct = np.array(
         [sum(g[c][0].size for c in range(p.component_num))
@@ -235,4 +414,7 @@ def run_stage1(inputs: list[str], shuf, out_dir: str,
                 if ab is not None:
                     ab.astype(np.uint16).tofile(
                         os.path.join(out_dir, f"{i}.co.{c}.a"))
+    if ckpt_dir and os.path.isdir(ckpt_dir):
+        # the combined sketch dir is now the durable result
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     return stat

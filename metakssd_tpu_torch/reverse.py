@@ -52,14 +52,18 @@ def co_reverse2kmer(codir: str, shuf_file: str, outdir: str = ".",
     if byreads:
         # per-read mode: combco.index.c indexes reads, printed to stdout
         # (reference co_rvs2kmer_byreads, command_reverse.c:148-232)
+        # every component's ids invert in one pass (the shuffle's reverse
+        # array is built per call), then print read by read
         nreads = cd.index[0].size - 1
+        kmers = [_kmer_strings(golden.drtuple_to_kmer(
+            (np.asarray(cd.ids[c]).astype(np.uint64) << np.uint64(ccb))
+            + np.uint64(c), shuf), TL) for c in range(cd.stat.comp_num)]
+        bounds = [np.asarray(cd.index[c]).astype(np.int64).tolist()
+                  for c in range(cd.stat.comp_num)]
         for r in range(nreads):
             out.write(f">read {r + 1}\n")
             for c in range(cd.stat.comp_num):
-                ids = cd.genome_ids(c, r)
-                dr = (ids.astype(np.uint64) << np.uint64(ccb)) \
-                    + np.uint64(c)
-                for s in _kmer_strings(golden.drtuple_to_kmer(dr, shuf), TL):
+                for s in kmers[c][bounds[c][r]:bounds[c][r + 1]]:
                     out.write(s + "\n")
         return
 

@@ -69,7 +69,7 @@ def test_shuffle_matches(tmp_path, flags, capsys):
 @pytest.mark.parametrize("byreads", [False, True])
 def test_reverse_matches(tmp_path, byreads, capsys):
     """reverse of a sixteen-component sketch dir, and reverse -b of a
-    per-read sketch (made by the JAX CLI: --byread is not ported yet)."""
+    per-read sketch (made by the port's CLI)."""
     rng = np.random.default_rng(13)
     gdir = tmp_path / "g"
     gdir.mkdir()
@@ -82,7 +82,12 @@ def test_reverse_matches(tmp_path, byreads, capsys):
     co = str(tmp_path / "co")
     flags = ["--byread"] if byreads else ["--component_sz", "5"]
     src = str(gdir / "x0.fa") if byreads else str(gdir)
-    assert jax_cli.main(["dist", "-L", shufp, *flags, "-o", co, src]) == 0
+    if byreads:
+        assert cli.main(["dist", "-L", shufp, *flags, "-o", co, "--device",
+                         "cpu", src]) == 0
+    else:
+        assert jax_cli.main(["dist", "-L", shufp, *flags, "-o", co,
+                             src]) == 0
     a, b = str(tmp_path / "rev_jax"), str(tmp_path / "rev_port")
     b_flag = ["-b"] if byreads else []
     out_a, out_b = _both(capsys,
@@ -214,7 +219,8 @@ def test_sketch_then_search_keepcofile(genome_inputs, capsys):
 
 
 def test_composite_shard_db_raises(genome_inputs, capsys):
-    """composite --shard-db names ROADMAP item 8 (more than one device)."""
+    """composite --shard-db 2 names ROADMAP item 8 (more than one
+    device); --shard-db 1 runs (tests/test_torch_shard_profile.py)."""
     tmp, gdir, fqs, shufp = genome_inputs
     ref, qry = str(tmp / "sd_ref"), str(tmp / "sd_qry")
     assert cli.main(["dist", "-L", shufp, "-o", ref, "--device", "cpu",
@@ -222,8 +228,22 @@ def test_composite_shard_db_raises(genome_inputs, capsys):
     assert cli.main(["dist", "-L", shufp, "-A", "-o", qry, "--device",
                      "cpu", fqs[0]]) == 0
     capsys.readouterr()
-    assert cli.main(["composite", "-r", ref, "-q", qry, "--shard-db", "1",
+    assert cli.main(["composite", "-r", ref, "-q", qry, "--shard-db", "2",
                      "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "ROADMAP.md" in err and "item 8" in err
+
+
+def test_profile_shard_db_raises(genome_inputs, capsys):
+    """profile --shard-db 2 names ROADMAP item 8 too."""
+    tmp, gdir, fqs, shufp = genome_inputs
+    ref = str(tmp / "psd_ref")
+    assert cli.main(["dist", "-L", shufp, "-o", ref, "--device", "cpu",
+                     gdir]) == 0
+    capsys.readouterr()
+    assert cli.main(["profile", "-L", shufp, "-r", ref, "-o",
+                     str(tmp / "psd_out"), "--shard-db", "2", "--device",
+                     "cpu", fqs[0]]) == 1
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and "item 8" in err
 

@@ -269,3 +269,40 @@ def test_member_shapes_reuse_one_index(cuda, name, identity):
     assert sketch_cuda.LAUNCHES["member"] == len(halves) + 1
     assert sketch_cuda.LAUNCHES["member_index"] == 1
     assert em.any() and not em.all()
+
+
+@pytest.mark.parametrize("max_needles", [None, 1000])
+def test_shard_match_cuda_matches_cpu(cuda, monkeypatch, max_needles):
+    """``ShardedMatchIndex.match`` (``--shard-db 1``) on the card equals
+    its CPU run: the same postings' genomes and abundances, 0xFFFFFFFF
+    matched where the distinct k-mers hold it, keys >= 2^31; K3 launches
+    once per call of at most MAX_NEEDLES ids, the index once per
+    component."""
+    from metakssd_tpu_torch.parallel import mesh as pmesh
+    if max_needles:
+        monkeypatch.setattr(pmesh, "MAX_NEEDLES", max_needles)
+    rng = np.random.default_rng(17)
+    rk = np.unique(_u32(rng, 0, 1 << 32, 200_000))
+    rk[-1] = ALL_ONES
+    lens = rng.integers(1, 5, rk.size)
+    starts = np.zeros(rk.size + 1, np.int64)
+    np.cumsum(lens, out=starts[1:])
+    gid = rng.integers(0, 300, int(starts[-1])).astype(np.int32)
+    q = np.unique(np.concatenate([rng.choice(rk, 6000),
+                                  _u32(rng, 0, 1 << 32, 6000),
+                                  np.array([ALL_ONES], np.uint32)]))
+    ab = rng.integers(1, 1000, q.size).astype(np.uint16)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        sketch_cuda.reset_launches()
+        ix = pmesh.ShardedMatchIndex(rk, starts, gid, dev)
+        got[dev] = ix.match(q, ab)
+        launches = dict(sketch_cuda.LAUNCHES)
+    calls = -(-q.size // (max_needles or q.size))
+    assert launches["member"] == calls and launches["member_index"] == 1
+    for a, b in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    assert got["cpu"][0].size > 6000
+    # the posting rows of 0xFFFFFFFF (the last key) are among the matches
+    last = gid[starts[-2]:starts[-1]]
+    assert np.isin(last, got["cuda"][0][got["cuda"][1] == ab[-1]]).all()

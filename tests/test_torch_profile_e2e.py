@@ -150,8 +150,7 @@ def test_binvec_abundance_vectors_match(slice_setup):
         assert data and data == b.read()
 
 
-@pytest.mark.parametrize("flag", [["--byread"], ["--ckpt"],
-                                  ["--mesh", "2"], ["-P", "cat"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"]])
 def test_unported_options_raise(slice_setup, flag, capsys):
     tmp, shufp, gdir, _, _ = slice_setup
     assert cli.main(["dist", "-L", shufp, "-o", str(tmp / "x"),

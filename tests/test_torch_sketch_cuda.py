@@ -8,10 +8,14 @@ GPU machine:
     python -m pytest -m cuda tests/test_torch_sketch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from metakssd_tpu_torch import pipeline
+from metakssd_tpu_torch.io import seqio
 from metakssd_tpu_torch.ops import golden, sketch, sketch_cuda, sketch_filter
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.state import accept_tables
@@ -208,3 +212,47 @@ def test_codes_at_an_odd_address(cuda):
     c = torch.from_numpy(codes).to(cuda)[1:]
     assert c.data_ptr() % 16 != 0 and c.is_contiguous()
     _assert_k1_k2_match_plain(c, tabs, p, 1 << 16)
+
+
+def _write_reads(path: str, codes_rows: np.ndarray) -> None:
+    """A fastq of the given reads (rows of base codes, 4 for N)."""
+    acgtn = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "wb") as f:
+        for i, row in enumerate(codes_rows):
+            seq = acgtn[np.minimum(row, 4)].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * len(seq)))
+
+
+@pytest.mark.parametrize("chunk,capacity", [(sketch_cuda.CHUNK_WINDOWS,
+                                             None), (3001, None), (3001, 5)])
+def test_byread_positions_match_plain(cuda, tmp_path, chunk, capacity):
+    """--byread through K1's position channel (and K2's rerun where a
+    chunk overflows, positions by nonzero) on the card: the windows and
+    stream positions, and the per-read dir, equal the plain versions'."""
+    p = SketchParams(8, 5, 2)
+    shuf = zero_accepted(p, seed=3)
+    rng = np.random.default_rng(4)
+    reads = rng.integers(0, 4, size=(600, 120)).astype(np.uint8)
+    reads[rng.integers(0, 600, 50), rng.integers(0, 120, 50)] = 4
+    reads[200:230] = 0                       # a poly-A block
+    fq = str(tmp_path / "r.fq")
+    _write_reads(fq, reads)
+    codes, _ = seqio.fastq_to_codes(fq)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        tabs = accept_tables(shuf, torch.device(dev))
+        dr, pos = sketch.sketch_codes_with_positions(
+            codes, shuf, dev, tabs, chunk_windows=chunk, capacity=capacity)
+        got[dev] = pairs(dr, pos)
+        sketch_cuda.reset_launches()
+        pipeline.sketch_byread(fq, shuf, str(tmp_path / dev), device=dev,
+                               chunk_windows=chunk, capacity=capacity)
+        if dev == "cuda":
+            launches = dict(sketch_cuda.LAUNCHES)
+    assert_pairs_equal(got["cuda"], got["cpu"])
+    assert launches["sketch_compact"] >= 1
+    assert (launches["sketch_full"] > 0) == (capacity is not None)
+    for name in sorted(os.listdir(tmp_path / "cpu")):
+        if name.startswith("combco") or name == "cofiles.stat":
+            assert (tmp_path / "cuda" / name).read_bytes() == \
+                (tmp_path / "cpu" / name).read_bytes(), name

@@ -40,9 +40,11 @@ def test_source_imports_neither_jax_nor_jax_package(rel):
 
 
 def test_every_module_and_verb_runs_standalone(tmp_path):
-    """Import every port module, then run shuffle, dist (stage I and the
-    sketch search), profile, set -g/-q/-i/-u, composite -b/-i/-s (sparse
-    and --dense), reverse, postprocess and primer with ``--device cpu``."""
+    """Import every port module, then run shuffle, dist (stage I, with
+    --byread, -P and --ckpt, and the sketch search), profile (also
+    --shard-db 1 --ckpt), set -g/-q/-i/-u, composite -b/-i/-s (sparse and
+    --dense) and -q --shard-db 1, reverse (also -b), postprocess and
+    primer with ``--device cpu``."""
     code = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
         import numpy as np
@@ -71,6 +73,13 @@ def test_every_module_and_verb_runs_standalone(tmp_path):
         run("dist", "-L", t + "/L2.shuf", "-o", t + "/db", *cpu, t + "/g")
         run("profile", "-L", t + "/L2.shuf", "-r", t + "/db", "-o",
             t + "/prof", *cpu, t + "/s.fq")
+        run("profile", "-L", t + "/L2.shuf", "-r", t + "/db", "-o",
+            t + "/prof1", "--shard-db", "1", "--ckpt", *cpu, t + "/s.fq")
+        run("dist", "-L", t + "/L2.shuf", "--byread", "-o", t + "/br", *cpu,
+            t + "/s.fq")
+        run("reverse", "-L", t + "/L2.shuf", "-b", "-o", t + "/rb", t + "/br")
+        run("dist", "-L", t + "/L2.shuf", "-P", "cat", "--ckpt", "-o",
+            t + "/piped", *cpu, t + "/s.fq")
         run("dist", "-r", t + "/db", "-o", t + "/search", *cpu, t + "/db")
         run("set", "-g", t + "/tax.tsv", "-o", t + "/pan", *cpu, t + "/db")
         run("set", "-q", "-o", t + "/uq", *cpu, t + "/pan")
@@ -78,6 +87,8 @@ def test_every_module_and_verb_runs_standalone(tmp_path):
         run("set", "-u", "-o", t + "/u", *cpu, t + "/db")
         run("composite", "-r", t + "/mk", "-q", t + "/prof/qry.co", "-b",
             *cpu)
+        run("composite", "-r", t + "/mk", "-q", t + "/prof/qry.co",
+            "--shard-db", "1", *cpu)
         run("composite", "-r", t + "/mk", "-i", *cpu)
         for dense in ((), ("--dense",)):
             run("composite", "-r", t + "/mk", "-s", "1", *dense, *cpu,
@@ -96,5 +107,9 @@ def test_every_module_and_verb_runs_standalone(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "STANDALONE-OK" in proc.stdout
     for f in ("db/cofiles.stat", "prof/abundance.tsv", "search/distance.out",
-              "mk/cofiles.stat", "mk/abundance_Vec.abm"):
+              "mk/cofiles.stat", "mk/abundance_Vec.abm", "br/combco.index.0",
+              "piped/combco.0"):
         assert os.path.getsize(tmp_path / f) > 0, f
+    for f in ("species_coverage.tsv", "abundance.tsv"):
+        assert (tmp_path / "prof" / f).read_bytes() == \
+            (tmp_path / "prof1" / f).read_bytes(), f
