@@ -76,10 +76,32 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    mco dir (``--component_sz 6``) and with ``--shard-db 1``.  On the
    card K3 and its index build must launch once per component (not once
    per query); the real haystack and needle counts of those calls are
-   printed.  The four distance.out files must be byte-identical, every
+   printed.  ``--shard-db 1`` (launch counts zeroed) must launch K3 once
+   per (query, component) with ids, in values mode, and its index once
+   per such pair of at least 16 distinct ids.  The four distance.out files must be byte-identical, every
    substituted query's best reference by Jaccard must be its source, the
    median Jaccard must fall strictly with the rate, and no unrelated
    query may reach Jaccard 0.01;
+5b. mesh: on phase 4's and phase 5's data, with launch counts zeroed
+   before each leg.  ``dist --mesh 4`` of the 1024 genomes (K1 on every
+   shard of every genome), byte-identical to phase 4's MarkerDB;
+   ``profile --mesh 4`` of the 4M reads (K1 per shard chunk, K2 for the
+   poly-A block's) and ``profile --shard-db 4`` (K3 and its index once per
+   db shard and component), TSVs byte-identical to phase 4's; ``composite
+   -q --shard-db 4`` of the sample's sketch, byte-identical to phase 4's
+   species coverage; ``dist -r --shard-db 4`` at K8S5L2 (K3 once per shard
+   and (query, component), the query's ids as haystack in values mode),
+   distance.out byte-identical to phase 5's.  K3 checked against its
+   plain version and timed (from a CUDA graph, beside
+   ``torch.searchsorted``, with its bound) at one shard of each of the two
+   ``--shard-db 4`` calls.  Then RANKS = 2 processes on the one card,
+   joined by ``MKSSD_COORDINATOR=127.0.0.1:<free port>`` over gloo
+   (``tests/ranks.run_ranks``: ``python -m metakssd_tpu_torch.cli`` once
+   per verb and rank), running ``dist --mesh 4``, ``dist -r --shard-db
+   4``, ``composite --shard-db 4``, ``set -u`` and ``set -g``, each rank
+   into its own dirs: every file of both ranks byte-identical to this
+   process's runs; a rank that fails, or one that runs a verb past
+   RANKS_TIMEOUT, fails the phase;
 6. set: a synthetic L3K11 sketch dir at a MarkerDB build's scale (65,536
    genomes in 16,384 taxa of 4, about 1,024 ids each, 67M ids in all,
    and 64 genomes of taxid 0) goes through ``set -g`` -> ``-q`` -> ``-i``,
@@ -113,15 +135,18 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    enqueueing): the median and range of PROBE_REPLAYS timings, taken in
    turns with one ``torch.sum``'s for the sums (replayed alike), and the
    plain version's;
-9. cuda tests: ``pytest -m cuda`` on the four cuda-marked test files.
+9. cuda tests: ``pytest -m cuda`` on the five cuda-marked test files.
 
 The line before the last is the kernels' JSON record, with the launch
-counts of the ``profile`` and ``dist --byread`` legs (K1, K2), of the
-``dist -r --device cuda``, ``set --device cuda`` and ``profile --shard-db
-1`` legs (K3 and its index build), each leg's in ``launches_by_leg`` and
+counts of the ``profile``, ``dist --byread``, ``dist --mesh 4`` and
+``profile --mesh 4`` legs (K1, K2), of the ``dist -r --device cuda``,
+``dist -r --shard-db 1``, ``set --device cuda``, ``profile --shard-db 1``, ``profile --shard-db 4``,
+``composite --shard-db 4`` and ``dist -r --shard-db 4`` legs (K3 and its
+index build), each leg's in ``launches_by_leg`` and
 their sum in ``launches``, and of the probe path (P1-P4, one entry per
 variant), and each kernel's bound (K3's and the index build's also per
-shape, K3's with the ``profile --shard-db 1`` call's): the larger of its
+shape, K3's with the ``profile --shard-db 1`` call's and one shard's of
+each ``--shard-db 4`` call): the larger of its
 bytes over 3.35 TB/s and its 32-bit operations over the card's int32 rate
 (SMs x 64 lanes x the largest SM clock, printed in phase 1), counted from
 this run's inputs (for K1 and K2, this run's kept windows; for K3, the
@@ -798,29 +823,30 @@ def _same_files(a: str, b: str, names, what: str) -> None:
             check(data and data == y.read(), f"{what}: {f} differs")
 
 
-def _k3_record(name: str, h, x, ix) -> dict:
-    """K3's times at one shape (haystack h, needles x, index ix, int32
-    tensors of u32 bits on the card) in identity mode, the product paths'
-    mode: from a CUDA graph and back to back, beside its plain version
-    and torch.searchsorted on int64 copies (the int32 bit view misorders
-    keys >= 2^31; the copies are set-up), timed the same two ways; and
-    its bound from this run's needles and index."""
+def _k3_record(name: str, h, x, ix, v=None) -> dict:
+    """K3's times at one shape (haystack h, needles x, index ix, values v
+    or None, int32 tensors of u32 bits on the card) in the mode of the
+    product path's call: from a CUDA graph and back to back, beside its
+    plain version and torch.searchsorted on int64 copies (the int32 bit
+    view misorders keys >= 2^31; the copies are set-up), timed the same
+    two ways; and its bound from this run's needles and index (values
+    mode also reads the values)."""
     import torch
     from metakssd_tpu_torch.ops import merge
     from metakssd_tpu_torch.probes import bench_member
     from metakssd_tpu_torch.probes.bench_member import time_ms
     h64, x64 = h.long() & ALL_ONES, x.long() & ALL_ONES
     rec = {"shape": name, "nh": h.numel(), "nn": x.numel(),
-           "k3_ms": bench_member.graph_ms(lambda: merge.member(h, None, x,
-                                                               ix)),
-           "k3_events_ms": time_ms(lambda: merge.member(h, None, x, ix), 20),
-           "plain_ms": time_ms(lambda: merge.member_plain(h, None, x), 5),
+           "k3_ms": bench_member.graph_ms(lambda: merge.member(h, v, x, ix)),
+           "k3_events_ms": time_ms(lambda: merge.member(h, v, x, ix), 20),
+           "plain_ms": time_ms(lambda: merge.member_plain(h, v, x), 5),
            "library_ms": bench_member.graph_ms(
                lambda: torch.searchsorted(h64, x64)),
            "library_events_ms": time_ms(
                lambda: torch.searchsorted(h64, x64), 20),
            "ops": _k3_ops(x64, ix, h.numel())}
-    rec["bound_ms"], rec["bound_by"] = _bound(4 * rec["nh"] + 12 * rec["nn"],
+    hay_bytes = 4 * rec["nh"] * (1 if v is None else 2)
+    rec["bound_ms"], rec["bound_by"] = _bound(hay_bytes + 12 * rec["nn"],
                                               rec["ops"])
     print(f"  K3 {name}: {rec['nh']} x {rec['nn']}  K3 {rec['k3_ms']:.4f} "
           f"ms (graph replay; back-to-back calls {rec['k3_events_ms']:.4f})"
@@ -962,7 +988,7 @@ def phase_stage1_flags(work: str, seed: int, sres: dict) -> dict:
     print("  profile --shard-db 1 K3 calls (haystack x needles): "
           + ", ".join(f"{k} {h} x {n}" for k, (h, n) in calls.items())
           + "; TSVs byte-identical to phase 4's profile", flush=True)
-    hay = index[0][comps[0]].hay
+    hay = index[0][comps[0]].hays[0]
     x = merge.u32_tensor(np.sort(np.asarray(qry.ids[comps[0]]))) \
         .to(hay.device)
     err = _k3_vs_plain("profile --shard-db 1", hay.hay, None, x, hay.index)
@@ -1055,9 +1081,23 @@ def phase_search(work: str, seed: int) -> dict:
                                     "--component_sz", "6"])
     secs["mco"] = run_cli("dist -r mco", [
         "dist", "-r", refmco, "-o", out["mco"], "--device", "cuda", qryco])
+    # --shard-db 1: K3 in values mode once per (query, component), the
+    # query's distinct ids as haystack (indexed from 16 ids)
+    sketch_cuda.reset_launches()
     secs["shard"] = run_cli("dist -r --shard-db 1", [
         "dist", "-r", refco, "--shard-db", "1", "-o", out["shard"],
         "--device", "cuda", qryco])
+    shard_launches = dict(sketch_cuda.LAUNCHES)
+    print(f"  dist -r --shard-db 1 launches {shard_launches}", flush=True)
+    sizes = [np.unique(qry.genome_ids(c, q)).size
+             for c in range(ref.stat.comp_num) if ref.ids[c].size
+             for q in range(qry.stat.infile_num)]
+    check(shard_launches["member"] == sum(1 for x in sizes if x)
+          and shard_launches["member_index"]
+          == sum(1 for x in sizes if x >= 16),
+          f"dist -r --shard-db 1: K3 once per (query, component) with ids "
+          f"({sum(1 for x in sizes if x)}), its index once per pair of 16 "
+          f"ids or more: {shard_launches}")
     print(f"  peak device memory (search leg) "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
 
@@ -1093,8 +1133,184 @@ def phase_search(work: str, seed: int) -> dict:
           "reference is its source; median Jaccard by rate "
           + ", ".join(f"{r}: {m:.6f}" for r, m in zip(RATES, med))
           + f"; unrelated queries max Jaccard {unrelated:.6f}", flush=True)
-    return {"launches": launches, "seconds": secs,
+    return {"launches": launches, "shard_launches": shard_launches,
+            "seconds": secs, "shuf": shufp, "refco": refco,
+            "qryco": qryco, "dist_out": out["cuda"],
             "k3_calls": {"calls": len(comps), "nh": nh, "nn": nn}}
+
+
+MESH = 4                          # shards of the mesh phase's legs
+RANKS = 2                         # processes of its multi-process leg
+RANKS_TIMEOUT = 300               # seconds a process of that leg may take
+
+
+def _mesh_launches(label: str, argv: list, path: str | None = None):
+    """``run_cli`` (or ``_run_cli_to`` with stdout to ``path``) with the
+    launch counts zeroed before it; returns (seconds, counts)."""
+    from metakssd_tpu_torch.ops import sketch_cuda
+    sketch_cuda.reset_launches()
+    dt = run_cli(label, argv) if path is None else \
+        _run_cli_to(label, argv, path)
+    got = dict(sketch_cuda.LAUNCHES)
+    print(f"  {label} launches {got}", flush=True)
+    return dt, got
+
+
+def phase_mesh(work: str, sres: dict, qres: dict) -> dict:
+    """``--mesh 4`` and ``--shard-db 4`` on phase 4's and phase 5's data,
+    each byte-identical to the one-device run and with its launches
+    counted; K3 timed at the per-shard shapes; then RANKS processes on the
+    one card, joined by MKSSD_COORDINATOR over gloo, every file of every
+    rank byte-identical to the one-process run's."""
+    import numpy as np
+    import torch
+    from metakssd_tpu_torch import composite
+    from metakssd_tpu_torch.formats.codir import CoDir
+    from metakssd_tpu_torch.ops import merge
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ranks import run_ranks
+    from metakssd_tpu_torch.pipeline import CoStat
+    shufp, db, fq = sres["shuf"], sres["markerdb"], sres["fastq"]
+    n = str(MESH)
+    secs, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    # --mesh 4: K1 (and K2) per shard of each genome and of the sample
+    d = os.path.join(work, "mesh_dist")
+    secs["dist --mesh 4"], launches["dist --mesh 4"] = _mesh_launches(
+        "dist --mesh 4", ["dist", "-L", shufp, "--mesh", n, "-o", d,
+                          "--device", "cuda", sres["genomes"]])
+    _same_dirs(d, db, "dist --mesh 4 against phase 4's dist")
+    check(launches["dist --mesh 4"]["sketch_compact"] >= MESH * N_GENOMES,
+          f"K1 did not run per shard: {launches['dist --mesh 4']}")
+    prof = os.path.join(work, "mesh_profile")
+    secs["profile --mesh 4"], launches["profile --mesh 4"] = _mesh_launches(
+        "profile --mesh 4", ["profile", "-L", shufp, "-r", db, "-o", prof,
+                             "--mesh", n, "--device", "cuda", fq])
+    _same_files(prof, sres["profile"], PROFILE_TSVS, "profile --mesh 4")
+    got = launches["profile --mesh 4"]
+    check(got["sketch_compact"] >= MESH and got["sketch_full"] > 0,
+          f"K1 per shard and K2 must run in profile --mesh 4: {got}")
+
+    # --shard-db 4: K3 per db shard, composite and profile
+    ref = CoDir.read(db, want_abund=False)
+    qry = CoDir.read(os.path.join(prof, "qry.co"))
+    comps = [c for c in range(ref.stat.comp_num)
+             if ref.ids[c].size and qry.ids[c].size]
+    sd = os.path.join(work, "mesh_shard_profile")
+    secs["profile --shard-db 4"], launches["profile --shard-db 4"] = \
+        _mesh_launches("profile --shard-db 4", [
+            "profile", "-L", shufp, "-r", db, "-o", sd, "--shard-db", n,
+            "--device", "cuda", fq])
+    _same_files(sd, sres["profile"], PROFILE_TSVS, "profile --shard-db 4")
+    got = launches["profile --shard-db 4"]
+    check(got["member"] == MESH * len(comps)
+          and got["member_index"] == MESH * len(comps),
+          f"K3 and its index must launch once per shard and component "
+          f"({MESH} x {len(comps)}): {got}")
+    tsv = os.path.join(work, "mesh_composite.tsv")
+    secs["composite -q --shard-db 4"], launches["composite --shard-db 4"] = \
+        _mesh_launches("composite -q --shard-db 4", [
+            "composite", "-r", db, "-q", os.path.join(prof, "qry.co"),
+            "--shard-db", n, "--device", "cuda"], tsv)
+    with open(tsv, "rb") as a, open(os.path.join(
+            sres["profile"], "species_coverage.tsv"), "rb") as b:
+        text = a.read()
+        check(text and text == b.read(), "composite -q --shard-db 4 differs "
+                                         "from phase 4's species coverage")
+    got = launches["composite --shard-db 4"]
+    check(got["member"] == MESH * len(comps),
+          f"K3 in composite --shard-db 4: {got}")
+    index = [v for k, v in composite._INDEX_CACHE.items()
+             if k[0] == os.path.abspath(db) and k[3] == MESH]
+    check(len(index) == 1, f"{len(index)} --shard-db 4 indexes staged")
+    hay = index[0][comps[0]].hays[0]
+    x = merge.u32_tensor(np.sort(np.asarray(qry.ids[comps[0]]))) \
+        .to(hay.device)
+    err = _k3_vs_plain("profile --shard-db 4", hay.hay, None, x, hay.index)
+    k3 = [_k3_record("profile --shard-db 4, one shard", hay.hay, x,
+                     hay.index)]
+
+    # dist -r --shard-db 4 at K8S5L2: queries' ids as haystacks, a shard's
+    # postings as needles
+    out = os.path.join(work, "mesh_search")
+    secs["dist -r --shard-db 4"], launches["dist -r --shard-db 4"] = \
+        _mesh_launches("dist -r --shard-db 4", [
+            "dist", "-r", qres["refco"], "--shard-db", n, "-o", out,
+            "--device", "cuda", qres["qryco"]])
+    _same_files(out, qres["dist_out"], ["distance.out"],
+                "dist -r --shard-db 4")
+    sref = CoDir.read(qres["refco"], want_abund=False)
+    sqry = CoDir.read(qres["qryco"], want_abund=False)
+    # (query, component) pairs with ids; an index needs 16 distinct ids
+    sizes = [np.unique(sqry.genome_ids(c, q)).size
+             for c in range(sref.stat.comp_num) if sref.ids[c].size
+             for q in range(sqry.stat.infile_num)]
+    pairs = sum(1 for x in sizes if x)
+    got = launches["dist -r --shard-db 4"]
+    check(got["member"] == MESH * pairs
+          and got["member_index"] == sum(1 for x in sizes if x >= 16),
+          f"dist -r --shard-db 4: K3 once per shard and (query, component)"
+          f" ({MESH} x {pairs}), its index once per pair: {got}")
+    c = next(c for c in range(sref.stat.comp_num) if sref.ids[c].size)
+    post = np.asarray(sref.ids[c], np.uint32)
+    uq, mult = np.unique(sqry.genome_ids(c, 0), return_counts=True)
+    qh = merge.StaticHaystack(uq, mult.astype(np.uint32), "cuda")
+    needles = merge.u32_tensor(post[:-(-post.size // MESH)]).to(qh.device)
+    err = max(err, _k3_vs_plain("dist -r --shard-db 4", qh.hay, qh.values,
+                                needles, qh.index))
+    k3.append(_k3_record("dist -r --shard-db 4, one shard", qh.hay, needles,
+                         qh.index, qh.values))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory (mesh legs) {peak / 2**20:.1f} MiB",
+          flush=True)
+
+    # RANKS processes on the one card: the verbs of a multi-host job, each
+    # rank into its own dirs; references from this process
+    names = CoStat.read(db).names
+    taxf = os.path.join(work, "mesh_taxa.tsv")
+    with open(taxf, "w") as f:
+        f.writelines(f"{1 + i // CHAIN_TAXON}\ttaxon{i // CHAIN_TAXON}\n"
+                     for i in range(len(names)))
+    serial = {k: os.path.join(work, f"mesh_serial_{k}") for k in ("u", "g")}
+    run_cli("set -u (one process)", ["set", "-u", "-o", serial["u"],
+                                     "--device", "cuda", db])
+    run_cli("set -g (one process)", ["set", "-g", taxf, "-o", serial["g"],
+                                     "--device", "cuda", db])
+    rk = os.path.join(work, "ranks")
+    os.makedirs(rk)
+
+    def j(name):
+        return os.path.join(rk, name)
+    cu = ["--device", "cuda"]
+    steps = [
+        (["dist", "-L", shufp, "--mesh", n, "-o", j("co_p{rank}"),
+          sres["genomes"], *cu], None),
+        (["dist", "-r", qres["refco"], "--shard-db", n, "-o",
+          j("dist_p{rank}"), qres["qryco"], *cu], None),
+        (["composite", "-r", db, "-q", os.path.join(prof, "qry.co"),
+          "--shard-db", n, *cu], j("comp_p{rank}.tsv")),
+        (["set", "-u", "-o", j("set_p{rank}"), db, *cu], None),
+        (["set", "-g", taxf, "-o", j("grp_p{rank}"), db, *cu], None)]
+    secs[f"{RANKS} processes"] = run_ranks(steps, RANKS, j("logs"),
+                                           RANKS_TIMEOUT)
+    for r in range(RANKS):
+        _same_dirs(j(f"co_p{r}"), db, f"rank {r} dist --mesh 4")
+        _same_files(j(f"dist_p{r}"), qres["dist_out"], ["distance.out"],
+                    f"rank {r} dist -r --shard-db 4")
+        with open(j(f"comp_p{r}.tsv"), "rb") as a:
+            check(a.read() == text, f"rank {r} composite --shard-db 4")
+        _same_dirs(j(f"set_p{r}"), serial["u"], f"rank {r} set -u")
+        _same_dirs(j(f"grp_p{r}"), serial["g"], f"rank {r} set -g")
+    print(f"  {RANKS} processes on one card over gloo: dist --mesh 4, "
+          "dist -r --shard-db 4, composite --shard-db 4, set -u and set -g "
+          f"in {secs[f'{RANKS} processes']:.3f} s; every file of every rank "
+          "byte-identical to the one-process run's", flush=True)
+    print("  mesh seconds: " + json.dumps({k: round(v, 4)
+                                           for k, v in secs.items()}),
+          flush=True)
+    return {"launches": launches, "k3": k3, "err": err, "seconds": secs,
+            "peak_mib": peak / 2**20}
 
 
 def _same_dirs(a: str, b: str, what: str) -> int:
@@ -1409,7 +1625,8 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
 CUDA_TESTS = ["tests/test_torch_sketch_cuda.py",
               "tests/test_torch_member_cuda.py",
               "tests/test_torch_setops_cuda.py",
-              "tests/test_torch_probes_cuda.py"]
+              "tests/test_torch_probes_cuda.py",
+              "tests/test_torch_mesh_cuda.py"]
 PROBE_KERNELS = ("probe_floor", "probe_winmath", "probe_gather",
                  "probe_search")
 
@@ -1579,6 +1796,10 @@ def main(argv=None) -> int:
         _phase("search", t0)
 
         t0 = time.time()
+        meshres = phase_mesh(work, sres, qres)
+        _phase("mesh", t0)
+
+        t0 = time.time()
         setres = phase_set(work, args.seed, sres)
         _phase("set", t0)
 
@@ -1602,17 +1823,25 @@ def main(argv=None) -> int:
     # record carries every shape's (phase_member)
     k3 = mres["shapes"][0]
     # launches per leg of the main paths, each counted from 0
+    ml = meshres["launches"]
     sketch_legs = {"profile": sres["launches"],
-                   "dist --byread": fres["byread_launches"]}
-    k3_legs = {"dist -r": qres["launches"], "set": setres["launches"],
-               "profile --shard-db 1": fres["shard_launches"]}
+                   "dist --byread": fres["byread_launches"],
+                   "dist --mesh 4": ml["dist --mesh 4"],
+                   "profile --mesh 4": ml["profile --mesh 4"]}
+    k3_legs = {"dist -r": qres["launches"],
+               "dist -r --shard-db 1": qres["shard_launches"],
+               "set": setres["launches"],
+               "profile --shard-db 1": fres["shard_launches"],
+               "profile --shard-db 4": ml["profile --shard-db 4"],
+               "composite --shard-db 4": ml["composite --shard-db 4"],
+               "dist -r --shard-db 4": ml["dist -r --shard-db 4"]}
 
     def by_leg(legs, name):
         return {leg: n[name] for leg, n in legs.items()}
     shapes = [{k: r[k] for k in (
         "shape", "nh", "nn", "ops", "k3_ms", "k3_events_ms", "plain_ms",
         "library_ms", "library_events_ms", "bound_ms", "bound_by")}
-        for r in mres["shapes"] + [fres["k3"]]]
+        for r in mres["shapes"] + [fres["k3"]] + meshres["k3"]]
     print(json.dumps({"kernels": [
         {"name": "sketch_compact (K1)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/sketch.cu",
@@ -1635,7 +1864,8 @@ def main(argv=None) -> int:
          "replaces": "metakssd_tpu/ops/merge_device.py:29",
          "launches": sum(by_leg(k3_legs, "member").values()),
          "launches_by_leg": by_leg(k3_legs, "member"),
-         "max_abs_err": max(mres["err"], fres["k3"]["err"]),
+         "max_abs_err": max(mres["err"], fres["k3"]["err"],
+                            meshres["err"]),
          "ms": k3["k3_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"], "shapes": shapes,

@@ -21,9 +21,17 @@ command_composite.c:32-63).  ``--device`` is ``cuda`` (default) or
 ``cpu``; ``cpu`` runs the plain PyTorch version of every kernel.  The
 verbs that do host work only (``shuffle``, ``reverse``, ``postprocess``,
 ``primer``) take no ``--device``; their handlers are copied from
-``metakssd_tpu.cli``.  Options whose paths are not ported yet (``--mesh``
-above 1, ``--shard-db`` above 1) raise NotImplementedError naming their
-ROADMAP.md item.
+``metakssd_tpu.cli``.  ``--mesh N`` sketches over N data shards and
+``--shard-db N`` spreads the MarkerDB or reference over N db shards
+(``parallel/mesh.py``), dealt over the visible devices.
+
+Several processes (on one host or many) run one job when each is started
+with ``MKSSD_COORDINATOR=host:port`` (rank 0's address),
+``MKSSD_NPROCS`` and ``MKSSD_PROCID``: they join over gloo before the verb
+runs (within ``MKSSD_COORD_TIMEOUT`` seconds, default 300, a budget for
+the join alone), every process reads the same inputs, each writes the
+same files, and each leaves the job when its verb ends.  A join that
+fails is a one-line error and exit code 1.
 """
 
 from __future__ import annotations
@@ -285,8 +293,9 @@ def build_parser() -> argparse.ArgumentParser:
     di.add_argument("--byread", action="store_true")
     di.add_argument("--seed", type=int, default=None)
     di.add_argument("--shard-db", type=int, default=0, dest="shard_db",
-                    help="1: count postings by expansion on the device")
-    di.add_argument("--mesh", type=int, default=0)
+                    help="shard the reference postings over N db shards")
+    di.add_argument("--mesh", type=int, default=0,
+                    help="sketch each input over N data shards")
     di.add_argument("--ckpt", action="store_true")
     di.add_argument("--component_sz", type=int, default=None,
                     help="mco dense row space = 16^N (default 8)")
@@ -322,8 +331,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="min shared k-mers to report a species (reference "
                          "MIN_KM_S macro: 6 default, 1 in the 16S build)")
     co.add_argument("--shard-db", type=int, default=0, dest="shard_db",
-                    help="1: match the query ids on the device (K3); "
-                         "more than one device is not ported yet")
+                    help="match the query ids (K3) over N db shards of the "
+                         "MarkerDB's k-mer space")
     co.add_argument("--dense", action="store_true",
                     help="batched dense search for -s on --device (last-"
                          "ulp value differences vs the sparse path)")
@@ -346,9 +355,11 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="shkm_thr",
                     help="min shared k-mers for poisson normalization")
     pf.add_argument("--min-km-s", type=int, dest="min_km_s", default=None)
-    pf.add_argument("--mesh", type=int, default=0)
+    pf.add_argument("--mesh", type=int, default=0,
+                    help="sketch the sample over N data shards")
     pf.add_argument("--ckpt", action="store_true")
-    pf.add_argument("--shard-db", type=int, default=0, dest="shard_db")
+    pf.add_argument("--shard-db", type=int, default=0, dest="shard_db",
+                    help="shard the MarkerDB k-mer space over N db shards")
     pf.add_argument("--cami", nargs=2,
                     metavar=("PSID2NCBI_TSV", "NODES_TSV"), default=None,
                     help="also write a CAMI-format profile")
@@ -488,12 +499,24 @@ def main(argv: list[str] | None = None) -> int:
     from metakssd_tpu_torch.composite import wait_staging
     from metakssd_tpu_torch.utils import TIMER
     args = build_parser().parse_args(argv)
+    joined = False
+    if os.environ.get("MKSSD_COORDINATOR"):
+        # a multi-process launch: join before any device work; a dead or
+        # malformed coordinator is a one-line error, not a hang
+        from metakssd_tpu_torch.parallel import mesh as pmesh
+        try:
+            joined = pmesh.init_distributed()
+        except RuntimeError as e:
+            print(f"metakssd_tpu_torch: {e}", file=sys.stderr)
+            return 1
     TIMER.reset()
     TIMER.meta["command"] = args.command
+    rc = 1
     try:
-        return args.func(args)
+        rc = args.func(args)
+        return rc
     except (ValueError, FileNotFoundError, IsADirectoryError,
-            NotADirectoryError, NotImplementedError) as e:
+            NotADirectoryError) as e:
         print(f"metakssd_tpu_torch: {e}", file=sys.stderr)
         return 1
     finally:
@@ -502,6 +525,8 @@ def main(argv: list[str] | None = None) -> int:
         # the background; an in-process caller gets main() back only once
         # every file of the run is on disk
         wait_staging()
+        if joined:
+            pmesh.leave_distributed(rc == 0)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,8 @@ package builds it: ``stage_markerdb`` inverts it (or mmaps its
 ``.mkssd_stage`` sidecars, the same files).  By default
 ``state.profile_index_from_staged`` moves it onto the device once per
 MarkerDB, and per query the port's ``DeviceProfileIndex`` returns the
-exact ``postings_group_stats`` tuple.  With ``shard_db == 1`` each
-component's distinct k-mers go onto the device as a
+exact ``postings_group_stats`` tuple.  With ``shard_db`` N >= 1 each
+component's distinct k-mers go onto N db shards as a
 ``parallel/mesh.ShardedMatchIndex``, K3 matches the query ids there, and
 the host expands the postings and takes the statistics (the native
 ``postings_group_stats``, else numpy and ``_profile_stats``), as the JAX
@@ -237,20 +237,21 @@ _INDEX_CACHE: dict = {}
 
 
 def _staged_index(refdir: str, ref: CoDir, device, shard_db: int):
-    """A MarkerDB's index on ``device``, built once per MarkerDB, device
-    and route: the ``DeviceProfileIndex`` (``shard_db`` 0), or per
-    component a one-shard ``ShardedMatchIndex`` (``shard_db`` 1; None for
-    an empty component)."""
+    """A MarkerDB's index on ``device``, built once per MarkerDB, device,
+    route and shard layout: the ``DeviceProfileIndex`` (``shard_db`` 0),
+    or per component a ``ShardedMatchIndex`` over ``shard_db`` db shards
+    (None for an empty component)."""
     stat_path = os.path.join(refdir, "cofiles.stat")
+    mesh = pmesh.make_mesh(1, shard_db, device) if shard_db else None
     key = (os.path.abspath(refdir), os.path.getmtime(stat_path), str(device),
-           shard_db)
+           shard_db, mesh.key if mesh else None)
     got = _INDEX_CACHE.get(key)
     if got is None:
         with TIMER.stage("composite.stage_markerdb"):
             comp_idx = stage_markerdb(refdir, ref)
         if shard_db:
             got = [None if ci is None else pmesh.ShardedMatchIndex(
-                ci.rk, ci.starts, ci.gid_sorted, device, shard_db)
+                ci.rk, ci.starts, ci.gid_sorted, mesh)
                 for ci in comp_idx]
         else:
             got = profile_index_from_staged(comp_idx, ref.stat.infile_num,
@@ -264,9 +265,8 @@ def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
                           out=None, shard_db: int = 0, *, device) -> None:
     """Profile query metagenome sketches against a MarkerDB
     (reference get_species_abundance, command_composite.c:446-649).
-    ``shard_db`` 1 matches on the device with K3 and takes the statistics
-    on the host; more than one shard is not ported yet."""
-    pmesh.check_shards(shard_db)
+    ``shard_db`` N >= 1 matches on N db shards with K3 and takes the
+    statistics on the host."""
     dev = resolve_device(device)
     out = out or sys.stdout
     with TIMER.stage("composite.load"):

@@ -333,8 +333,8 @@ def run_dist_search(ref_path: str, qry_path: str, outdir: str,
                     opts: DistOptions | None = None, *, device,
                     shard_db: int = 0, max_mem_gb: float = 0) -> str:
     """Counts, statistics and ``distance.out``
-    (``metakssd_tpu.dist.run_dist_search``).  ``shard_db`` 1 takes the
-    one-device posting expansion of ``parallel/mesh.py``; ``max_mem_gb``
+    (``metakssd_tpu.dist.run_dist_search``).  ``shard_db`` N >= 1 counts
+    over N db shards (``parallel/mesh.sharded_shared_counts``); ``max_mem_gb``
     > 0 accumulates a larger matrix straight into the memory-mapped
     ``sharedk_ct.dat`` (``-m``)."""
     dev = resolve_device(device)
@@ -352,8 +352,8 @@ def run_dist_search(ref_path: str, qry_path: str, outdir: str,
     elif shard_db >= 1 and not is_mco:
         from metakssd_tpu_torch.parallel import mesh as pmesh
         with TIMER.stage("dist.shared_counts"):
-            matrix = pmesh.sharded_shared_counts(ref_path, qry, shard_db,
-                                                 dev)
+            matrix = pmesh.sharded_shared_counts(
+                ref_path, qry, pmesh.make_mesh(1, shard_db, dev))
         skf = save_sharedk(matrix, outdir)
     else:
         qnum, rnum = qry.stat.infile_num, len(ref_names)

@@ -1,149 +1,384 @@
-"""One-device counterparts of ``metakssd_tpu/parallel/mesh.py``.
+"""Shards, processes and the sharded steps: the port of
+``metakssd_tpu/parallel/mesh.py``.
 
-``device_union`` ports ``_union_step``/``device_union``
-(``mesh.py:541-631``): the distinct values of a u32 multiset, with exact
-counts when asked, by one sort on the device.  The JAX step pads with
-0xFFFFFFFF, masks it out on the device and puts it back on the host, and
-caps each device's counts at 2; here no value is a pad and every count is
-exact.
+A :class:`Mesh` (``make_mesh``) is a grid of ``n_data x n_db`` shards, each
+with the rank that owns it and its ``torch.device``.  In one process the
+shards are dealt round-robin over the devices that ``--device`` names
+(``cuda``: shard i on ``cuda:(i % device_count)``; ``cpu``: all on the
+CPU).  Across processes (``init_distributed``, the ``MKSSD_COORDINATOR``
+launch) the data axis spans the ranks and the db axis stays within one,
+as the JAX mesh puts the data axis over hosts; rank r works on
+``cuda:(r % device_count)``.
 
-``sharded_shared_counts`` is the ``--shard-db`` route of dist search: the
-port of ``sharded_shared_counts`` with a db axis of 1, which takes
-``_expansion_shared_counts`` (``mesh.py:268-358``).
+The collectives stand in for ``all_gather``/``psum``: ``gather_arrays``
+and ``all_sum`` copy to the host and go over gloo (sizes first, then
+padded buffers), and are the identity with one process.  Only small merged
+results cross: per-shard sketches, count rows, distinct-value runs.
 
-Query membership runs on the host against each component's distinct
-k-mers, as in the JAX step.  The device expands only the matched rows'
-postings into the port's [subrows, SUBW] tile (``ops/profile_device.py``
-``SubrowTable``/``_expand_tile``) and adds each posting's query
-multiplicity into its genome's count with an int64 ``index_add_``: exact
-for any count, where the JAX step sorts and differences a u32 prefix sum.
-A query k-mer counts once per occurrence (per-read sketches repeat
-k-mers; reference command_dist.c:1044-1049).
-
-``ShardedMatchIndex`` is the ``--shard-db`` route of ``composite`` and
-``profile``: the port of ``ShardedMatchIndex`` (``mesh.py:449-535``) for
-one shard.  A component's sorted distinct k-mers stay on the device as a
-``StaticHaystack`` with K3's index, and K3 (``ops/merge.member``) gives
-each query id's lower-bound row and member flag, where the JAX step runs
-``jnp.searchsorted`` on its shard; the posting expansion is the JAX
-package's, on the host.  K3 needs no pad, so a query id 0xFFFFFFFF
-matches when the MarkerDB holds it, as on the serial path.
-
-More than one db shard needs torch.distributed and is ROADMAP.md's port
-queue item 8.
+* ``sharded_sketch`` (``mesh.py:634-704``, ``--mesh N``): the code stream
+  cut into ``n_data`` shards of ``ceil(nwin / n_data)`` windows with the
+  TL-1 overlap, K1 (K2 where a chunk overflows) on each shard's device,
+  and the exact multiset merge.
+* ``ShardedMatchIndex`` (``:449-535``, ``composite``/``profile
+  --shard-db N``): a component's sorted distinct k-mers in ``n_db``
+  contiguous slices, each a ``StaticHaystack`` with K3's index on its
+  shard's device; K3 gives each query id's member flag and local lower
+  bound, and the row is the slice offset plus that, in int64.  K3 needs no
+  pad, so a query id 0xFFFFFFFF matches when the MarkerDB holds it, as on
+  the serial path.
+* ``sharded_shared_counts`` (``:332-446``, ``dist -r --shard-db N``): per
+  db shard, K3 in values mode with the query's distinct ids as haystack,
+  their multiplicities as values and the shard's postings, genome-major,
+  as needles; each genome's count is an int64 prefix difference at its
+  bounds, for every db axis (one shard too, where the JAX package takes
+  its matched-row expansion, ``:268-329``).  Queries are dealt over the
+  data axis.
+* ``make_sharded_profile_step`` (``:179-227``): K1 per data shard, a
+  distinct merge, K3 per db shard against the postings, the per-genome sum.
+* ``device_union`` (``:541-631``, ``set -u/-q``): ``torch.unique`` per data
+  shard on its device, a host merge and a gather across ranks; every count
+  is exact, where the JAX step caps each device's at 2.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import socket
+import time
 
 import numpy as np
 import torch
 
 from metakssd_tpu_torch.device import resolve_device
 from metakssd_tpu_torch.dist import MAX_NEEDLES
-from metakssd_tpu_torch.formats import mco as mco_fmt
 from metakssd_tpu_torch.formats.codir import CoDir
+from metakssd_tpu_torch.ops import merge, sketch, sketch_cuda
+from metakssd_tpu_torch.ops.golden import window_drtuples
 from metakssd_tpu_torch.ops.merge import (StaticHaystack, sorted_membership,
                                           u32_tensor)
-from metakssd_tpu_torch.ops.profile_device import SubrowTable, _expand_tile
+from metakssd_tpu_torch.params import SketchParams
+from metakssd_tpu_torch.state import accept_tables, make_accept_tables
+from metakssd_tpu_torch.utils import TIMER
 
 # XOR with the sign bit maps the u32 order onto the int32 order, so the
 # keys sort as 4-byte ints (a plain int32 bit view puts keys >= 2^31 first).
 _U32_FLIP = -(1 << 31)
+_U32 = 0xFFFFFFFF
 
 
-def device_union(ids, device, return_counts: bool = False):
-    """``np.unique(ids)`` of a uint32 array, sorted on ``device``: the
-    distinct values ascending, and with ``return_counts`` their exact
-    occurrence counts (int64)."""
+# ---------------------------------------------------------------------------
+# processes
+# ---------------------------------------------------------------------------
+
+def init_distributed(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None) -> bool:
+    """Join the other processes of a multi-process run over gloo.
+
+    Arguments default to ``MKSSD_COORDINATOR`` (host:port of rank 0),
+    ``MKSSD_NPROCS`` and ``MKSSD_PROCID``; no coordinator: no-op, False.
+    Ranks other than 0 first probe the coordinator's socket until
+    ``MKSSD_COORD_TIMEOUT`` seconds (default 300) pass, so a dead or wrong
+    address is a one-line RuntimeError, not a hang; the probe's time counts
+    against the same budget, with at least half of it kept for the join.
+    The budget bounds the rendezvous only (an explicit ``TCPStore``); the
+    collectives keep torch's default deadline.  Each rank then works on
+    ``cuda:(rank % device_count)`` where CUDA is present.  Gloo, always:
+    only small merged results cross, and NCCL cannot place two ranks on
+    one card."""
+    import torch.distributed as tdist
+    if tdist.is_initialized():
+        return True
+    coordinator = coordinator or os.environ.get("MKSSD_COORDINATOR")
+    if not coordinator:
+        return False
+    try:
+        if num_processes is None:
+            num_processes = int(os.environ["MKSSD_NPROCS"])
+        if process_id is None:
+            process_id = int(os.environ["MKSSD_PROCID"])
+    except (KeyError, ValueError) as e:
+        raise RuntimeError(
+            "multi-host join failed: MKSSD_COORDINATOR is set but "
+            "MKSSD_NPROCS / MKSSD_PROCID are missing or non-integer "
+            f"({e!r}): the launcher must export all three") from e
+    timeout = int(os.environ.get("MKSSD_COORD_TIMEOUT", "300"))
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise RuntimeError(
+            f"multi-host join failed: MKSSD_COORDINATOR must be "
+            f"host:port, got {coordinator!r}")
+    t0 = time.time()
+    if process_id != 0:
+        deadline = t0 + timeout
+        while True:
+            try:
+                socket.create_connection((host, int(port)), timeout=2).close()
+                break
+            except OSError:
+                if time.time() >= deadline:
+                    raise RuntimeError(
+                        f"multi-host join failed: coordinator {coordinator} "
+                        f"unreachable within {timeout}s (process "
+                        f"{process_id}/{num_processes}): check that process "
+                        "0 is up and the address is correct") from None
+                time.sleep(0.5)
+    remaining = max(int(timeout - (time.time() - t0)), timeout // 2, 10)
+    # the join budget bounds the rendezvous alone; the collectives keep
+    # torch's own deadline, so ranks that drift apart in a long step (as
+    # with uneven I/O) still meet
+    try:
+        store = tdist.TCPStore(host, int(port), num_processes,
+                               is_master=process_id == 0,
+                               timeout=datetime.timedelta(seconds=remaining))
+        tdist.init_process_group("gloo", store=store,
+                                 world_size=num_processes, rank=process_id,
+                                 timeout=tdist.default_pg_timeout)
+        store.set_timeout(tdist.default_pg_timeout)
+    except (RuntimeError, ValueError) as e:
+        first = str(e).strip().splitlines()[0] if str(e).strip() else ""
+        raise RuntimeError(
+            f"multi-host join failed: process {process_id}/{num_processes} "
+            f"could not join {coordinator} within {remaining}s ({first})"
+        ) from None
+    if torch.cuda.is_available():
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
+    return True
+
+
+def leave_distributed(ok: bool) -> None:
+    """Leave the process group, if this process joined one.  After a run
+    that went well every rank waits for the others first, so none tears
+    down a connection that another still reads; after a failure it leaves
+    at once, and the others' pending collectives fail on the closed
+    connections rather than wait.  Leaving before the interpreter exits
+    keeps gloo's threads from being torn down live (an abort)."""
+    import torch.distributed as tdist
+    if not (tdist.is_available() and tdist.is_initialized()):
+        return
+    try:
+        if ok:
+            tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+
+
+def world() -> tuple[int, int]:
+    """(processes, this rank): (1, 0) without a joined process group."""
+    import torch.distributed as tdist
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_world_size(), tdist.get_rank()
+    return 1, 0
+
+
+def gather_arrays(arr: np.ndarray) -> list[np.ndarray]:
+    """Every rank's 1-D array, in rank order (sizes may differ); the
+    identity with one process.  The bytes go over gloo on the CPU: the
+    sizes first, then buffers padded to the largest."""
+    nproc, _ = world()
+    arr = np.ascontiguousarray(arr)
+    if nproc == 1:
+        return [arr]
+    import torch.distributed as tdist
+    raw = torch.from_numpy(arr.view(np.uint8).reshape(-1).copy())
+    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(nproc)]
+    tdist.all_gather(sizes, torch.tensor([raw.numel()], dtype=torch.int64))
+    width = max(1, max(int(s) for s in sizes))
+    buf = torch.zeros(width, dtype=torch.uint8)
+    buf[:raw.numel()] = raw
+    outs = [torch.empty(width, dtype=torch.uint8) for _ in range(nproc)]
+    tdist.all_gather(outs, buf)
+    return [o[:int(s)].numpy().view(arr.dtype)
+            for o, s in zip(outs, sizes)]
+
+
+def all_sum(arr: np.ndarray) -> np.ndarray:
+    """The int64 sum of ``arr`` over every rank (``psum``); the identity
+    with one process."""
+    arr = np.ascontiguousarray(arr, dtype=np.int64)
+    if world()[0] == 1:
+        return arr
+    import torch.distributed as tdist
+    t = torch.from_numpy(arr.copy())
+    tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+    return t.numpy()
+
+
+# ---------------------------------------------------------------------------
+# the grid
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    data: int
+    db: int
+    rank: int
+    device: torch.device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``n_data x n_db`` shards, row-major; ``rank`` is this process."""
+    n_data: int
+    n_db: int
+    shards: tuple
+    rank: int = 0
+
+    def row(self, d: int) -> tuple:
+        return self.shards[d * self.n_db:(d + 1) * self.n_db]
+
+    @property
+    def local_rows(self) -> list[int]:
+        """The data rows this process owns (every db shard of a row lies
+        in one process)."""
+        return [d for d in range(self.n_data)
+                if self.shards[d * self.n_db].rank == self.rank]
+
+    @property
+    def key(self) -> tuple:
+        """What identifies the layout for a cache: the grid, this rank and
+        its shards' devices."""
+        return (self.n_data, self.n_db, self.rank,
+                tuple(str(s.device) for s in self.shards
+                      if s.rank == self.rank))
+
+    def describe(self) -> str:
+        return " ".join(f"{s.data}.{s.db}@{s.rank}:{s.device}"
+                        for s in self.shards)
+
+
+def make_mesh(n_data: int | None = None, n_db: int = 1,
+              device="cuda") -> Mesh:
+    """The ``n_data x n_db`` grid on ``device`` (``mesh.py:119-135``).
+
+    ``n_data`` None takes one data row per visible device (cuda) or one
+    (cpu).  In one process shard i lies on ``cuda:(i % device_count)``, or
+    on the one device that ``device`` names with an index, or on the CPU.
+    Across P processes the data axis spans them: ``n_data`` rounds up to a
+    multiple of P, rank r owns the consecutive rows ``r * n_data / P ...``
+    with all their db shards, on ``cuda:(r % device_count)`` or the CPU.
+    The layout goes into ``TIMER.meta``."""
     dev = resolve_device(device)
-    if np.size(ids) == 0:
-        empty = np.zeros(0, np.uint32)
-        return (empty, np.zeros(0, np.int64)) if return_counts else empty
-    x = u32_tensor(ids).to(dev) ^ _U32_FLIP
-    got = torch.unique(x, sorted=True, return_counts=return_counts)
-    vals, counts = got if return_counts else (got, None)
-    vals = (vals ^ _U32_FLIP).cpu().numpy().view(np.uint32)
-    if not return_counts:
-        return vals
-    return vals, counts.cpu().numpy().astype(np.int64)
+    if n_db < 1 or (n_data is not None and n_data < 1):
+        raise ValueError(f"a mesh needs n_data, n_db >= 1, got "
+                         f"{n_data} x {n_db}")
+    pinned = dev.type == "cpu" or dev.index is not None
+    ncard = 1 if pinned else torch.cuda.device_count()
+    nproc, rank = world()
+    if n_data is None:
+        n_data = max(1, ncard // n_db) if nproc == 1 else nproc
+    if nproc == 1:
+        devs = [dev] if pinned else [torch.device("cuda", i)
+                                     for i in range(ncard)]
+        shards = tuple(Shard(i // n_db, i % n_db, 0, devs[i % len(devs)])
+                       for i in range(n_data * n_db))
+    else:
+        per = -(-n_data // nproc)
+        n_data = per * nproc
+
+        def rank_dev(r: int) -> torch.device:
+            return dev if pinned else torch.device("cuda", r % ncard)
+        shards = tuple(Shard(i // n_db, i % n_db, i // n_db // per,
+                             rank_dev(i // n_db // per))
+                       for i in range(n_data * n_db))
+    mesh = Mesh(n_data, n_db, shards, rank)
+    TIMER.meta["mesh"] = f"{n_data}x{n_db} over {nproc} process" \
+                         + ("es" if nproc > 1 else "")
+    TIMER.meta["mesh_shards"] = mesh.describe()
+    return mesh
 
 
-def _subrow_counts(sub: SubrowTable, subs: np.ndarray, weight: np.ndarray,
-                   nref: int, device) -> np.ndarray:
-    """int64 [nref]: the weights of the matched subrows' postings, summed
-    per genome on the device."""
-    g, valid = _expand_tile(sub, torch.from_numpy(subs).to(device),
-                            subs.size, nref)
-    w = torch.from_numpy(weight.astype(np.int64)).to(device)
-    w = torch.where(valid, w[:, None], torch.zeros_like(g))
-    counts = torch.zeros(nref + 1, dtype=torch.int64, device=device)
-    counts.index_add_(0, g.reshape(-1), w.reshape(-1))
-    return counts[:nref].cpu().numpy()
+def _as_mesh(mesh) -> Mesh:
+    """A Mesh as given, or one shard on a device."""
+    return mesh if isinstance(mesh, Mesh) else make_mesh(1, 1, mesh)
 
 
-def check_shards(n_db: int) -> None:
-    """Raise for a db axis of more than one shard (ROADMAP.md item 8)."""
-    if n_db > 1:
-        raise NotImplementedError(
-            f"--shard-db {n_db} is not ported to metakssd_tpu_torch yet "
-            "(ROADMAP.md, port queue item 8); --shard-db 1 runs on one "
-            "device")
+# ---------------------------------------------------------------------------
+# --mesh: the data-parallel sketch
+# ---------------------------------------------------------------------------
+
+def _shard_windows(seg: np.ndarray, shuf, dev, tables: dict, **kw):
+    """All kept drtuples of one shard's codes: K1/K2 on ``dev`` on the
+    kernel path, golden off it."""
+    if not sketch.on_device_path(shuf):
+        return np.asarray(window_drtuples(seg, shuf), np.uint64)
+    if dev not in tables:
+        tables[dev] = accept_tables(shuf, dev)
+    return sketch_cuda.sketch_windows(seg, shuf.params, tables[dev],
+                                      **kw)[0].astype(np.uint64)
 
 
-def sharded_shared_counts(ref, qry, n_db: int, device) -> np.ndarray:
-    """uint32 [qry_num, ref_num] shared-k-mer counts by matched-row
-    expansion, ``--shard-db n_db``: one shard, on one device, for now."""
-    check_shards(n_db)
-    dev = resolve_device(device)
-    if isinstance(ref, str):
-        ref = CoDir.read(ref, want_abund=False)
-    if isinstance(qry, str):
-        qry = CoDir.read(qry, want_abund=False)
-    num_refs = ref.stat.infile_num
-    nqry = qry.stat.infile_num
-    out = np.zeros((nqry, num_refs), dtype=np.uint32)
-    for c in range(ref.stat.comp_num):
-        inv = mco_fmt.InvertedIndex.from_codir(ref, c)
-        if inv.kmers.size == 0:
-            continue
-        sub = SubrowTable(inv.offsets.astype(np.int64), inv.gids, dev)
-        rk = np.asarray(inv.kmers)
-        for q in range(nqry):
-            uq, mult = np.unique(qry.genome_ids(c, q), return_counts=True)
-            pos = np.minimum(np.searchsorted(rk, uq), rk.size - 1)
-            member = rk[pos] == uq
-            subs, wsub = sub.expand_rows(pos[member], mult[member])
-            if subs.size:
-                out[q] += _subrow_counts(sub, subs, wsub, num_refs,
-                                         dev).astype(np.uint32)
+def sharded_sketch(codes: np.ndarray, shuf, mesh, tables=None,
+                   **kw) -> np.ndarray:
+    """Sketch one code stream data-parallel over the mesh's data axis: the
+    sorted uint64 drtuple multiset, duplicates kept, identical to
+    ``sketch.sketch_codes``.  Shard d holds windows ``[d * nwin, (d + 1) *
+    nwin)`` of ``nwin = ceil(windows / n_data)`` (its codes overlap the next
+    shard's by TL-1), so every window is counted once; a shard past the
+    stream's end is empty.  Each rank sketches its rows and the parts are
+    gathered.  ``tables``, the sketch tables on one device, are reused
+    for the shards on it.  ``kw`` reaches the chunk loop
+    (``chunk_windows``, ``capacity``)."""
+    mesh = _as_mesh(mesh)
+    codes = np.asarray(codes, np.uint8)
+    TL = shuf.params.kmer_len
+    nwin_total = max(codes.size - TL + 1, 0)
+    nwin = max(-(-nwin_total // mesh.n_data), 1)
+    tables = {} if tables is None else {tables.accept.device: tables}
+    parts = [np.zeros(0, np.uint64)]
+    for d in mesh.local_rows:
+        seg = codes[d * nwin:d * nwin + nwin + TL - 1]
+        if seg.size >= TL:
+            parts.append(_shard_windows(seg, shuf, mesh.row(d)[0].device,
+                                        tables, **kw))
+    out = np.concatenate(gather_arrays(np.concatenate(parts)))
+    out.sort()
     return out
 
 
-class ShardedMatchIndex:
-    """A MarkerDB component's match index for ``--shard-db n_db`` (one
-    shard, on one device, for now): drop-in for ``composite._CompIndex``.
-    ``match`` returns the matched postings' genomes and the matching
-    query ids' abundances, the JAX package's (``mesh.py:506-535``)."""
+# ---------------------------------------------------------------------------
+# --shard-db: composite / profile
+# ---------------------------------------------------------------------------
 
-    def __init__(self, rk, starts, gid_sorted, device, n_db: int = 1):
-        check_shards(n_db)
+class ShardedMatchIndex:
+    """A MarkerDB component's match index over the mesh's db axis: drop-in
+    for ``composite._CompIndex``.  ``mesh`` is a Mesh, or a device for one
+    shard on it.  Each process holds every slice (on the shards
+    of its first data row), so ``match`` needs no collective; it returns
+    the matched postings' genomes and the matching query ids' abundances,
+    the JAX package's (``mesh.py:501-535``)."""
+
+    def __init__(self, rk, starts, gid_sorted, mesh):
+        mesh = _as_mesh(mesh)
+        rk = np.asarray(rk, np.uint32)
         self.starts = np.asarray(starts)
         self.gid_sorted = np.asarray(gid_sorted)
-        self.nk = np.size(rk)
-        self.hay = StaticHaystack(rk, None, device)
+        self.nk = rk.size
+        row = mesh.row(mesh.local_rows[0])
+        self.per = -(-max(self.nk, 1) // len(row))
+        self.hays = [StaticHaystack(rk[j * self.per:(j + 1) * self.per],
+                                    None, s.device)
+                     for j, s in enumerate(row)]
 
     def match(self, qids_s: np.ndarray, qab_s: np.ndarray
               ) -> tuple[np.ndarray, np.ndarray]:
         if qids_s.size == 0 or self.nk == 0:
             return (np.zeros(0, np.int32), np.zeros(0, np.uint16))
-        # K3 on the haystack's device, one call per MAX_NEEDLES ids
+        # K3 per slice, one call per MAX_NEEDLES ids; an id lies in at
+        # most one slice, and its row is the slice offset + local bound
         member = np.zeros(qids_s.size, bool)
         rows = np.zeros(qids_s.size, np.int64)
-        for lo in range(0, qids_s.size, MAX_NEEDLES):
-            m, pos = sorted_membership(self.hay, None,
-                                       qids_s[lo:lo + MAX_NEEDLES])
-            member[lo:lo + m.size] = m
-            rows[lo:lo + m.size] = pos
+        for j, hay in enumerate(self.hays):
+            if hay.hay.numel() == 0:
+                continue
+            for lo in range(0, qids_s.size, MAX_NEEDLES):
+                m, pos = sorted_membership(hay, None,
+                                           qids_s[lo:lo + MAX_NEEDLES])
+                hit = np.flatnonzero(m) + lo
+                member[hit] = True
+                rows[hit] = j * self.per + pos[m].astype(np.int64)
         rows, ab = rows[member], qab_s[member]
         st, en = self.starts[rows], self.starts[rows + 1]
         lens = en - st
@@ -156,3 +391,184 @@ class ShardedMatchIndex:
                 - np.repeat(bnd, lens) + np.repeat(st, lens))
         return (self.gid_sorted[flat].astype(np.int32),
                 np.repeat(ab, lens))
+
+
+# ---------------------------------------------------------------------------
+# --shard-db: dist search
+# ---------------------------------------------------------------------------
+
+def _my_queries(mesh: Mesh, nqry: int) -> list[tuple[int, tuple]]:
+    """(query, its data row's shards) for the queries this process owns:
+    query q goes to row q % n_data, as the JAX step batches them."""
+    mine = set(mesh.local_rows)
+    return [(q, mesh.row(q % mesh.n_data)) for q in range(nqry)
+            if q % mesh.n_data in mine]
+
+
+def _posting_counts(hay: StaticHaystack, needles: torch.Tensor,
+                    bounds: torch.Tensor) -> np.ndarray:
+    """int64 [len(bounds) - 1]: per genome, the summed values (query
+    multiplicities) of its postings, one K3 call per MAX_NEEDLES needles;
+    ``bounds`` are the genomes' posting bounds, relative to ``needles``."""
+    out = torch.zeros(bounds.numel() - 1, dtype=torch.int64,
+                      device=needles.device)
+    for lo in range(0, needles.numel(), MAX_NEEDLES):
+        piece = needles[lo:lo + MAX_NEEDLES]
+        _, val = merge.member(hay.hay, hay.values, piece, hay.index)
+        cs = torch.zeros(piece.numel() + 1, dtype=torch.int64,
+                         device=piece.device)
+        torch.cumsum(val.to(torch.int64) & _U32, 0, out=cs[1:])
+        b = (bounds - lo).clamp(0, piece.numel())
+        out += cs[b[1:]] - cs[b[:-1]]
+    return out.cpu().numpy()
+
+
+def sharded_shared_counts(ref, qry, mesh) -> np.ndarray:
+    """uint32 [qry_num, ref_num] shared-k-mer counts, ``--shard-db``
+    (``mesh.py:332-446``): ``mesh`` is a Mesh, or a device for one shard.
+
+    Per component the postings are the sketch dir's ids in genome-major
+    order (each genome's ids between its index bounds), cut into n_db
+    contiguous slices staged once on their shards' devices.  Per query and
+    shard, K3 in values mode (the query's distinct ids as haystack, their
+    multiplicities as values) gives each posting its multiplicity, 0 where
+    the query lacks it; a genome's count is the prefix difference at its
+    bounds, summed over the shards.  Counts are exact int64 per process,
+    summed over the ranks, and wrap to uint32 as the serial path's do."""
+    mesh = _as_mesh(mesh)
+    if isinstance(ref, str):
+        ref = CoDir.read(ref, want_abund=False)
+    if isinstance(qry, str):
+        qry = CoDir.read(qry, want_abund=False)
+    num_refs = ref.stat.infile_num
+    out = np.zeros((qry.stat.infile_num, num_refs), np.int64)
+    mine = _my_queries(mesh, qry.stat.infile_num)
+    for c in range(ref.stat.comp_num):
+        post = np.asarray(ref.ids[c], np.uint32)
+        if post.size == 0 or not mine:
+            continue
+        bounds = np.asarray(ref.index[c], np.int64)
+        per = -(-post.size // mesh.n_db)
+        staged: dict = {}                # (row, db) -> (needles, bounds)
+        for d in {row[0].data for _, row in mine}:
+            for s in mesh.row(d):
+                lo = s.db * per
+                staged[d, s.db] = (
+                    u32_tensor(post[lo:lo + per]).to(s.device),
+                    torch.from_numpy(bounds - lo).to(s.device))
+        for q, row in mine:
+            uq, mult = np.unique(qry.genome_ids(c, q), return_counts=True)
+            if uq.size == 0:
+                continue
+            hays: dict = {}
+            for s in row:
+                needles, b = staged[s.data, s.db]
+                if needles.numel() == 0:
+                    continue
+                if s.device not in hays:
+                    hays[s.device] = StaticHaystack(
+                        uq, mult.astype(np.uint32), s.device)
+                out[q] += _posting_counts(hays[s.device], needles, b)
+    return all_sum(out).astype(np.uint32)
+
+
+def make_sharded_profile_step(mesh, *, k: int, subk: int, drlevel: int,
+                              nwin: int, num_refs: int):
+    """The multi-shard profiling step (``mesh.py:179-227``) as a plain
+    function ``step(codes, accept_tups, pfilters, ref_ids, ref_gid)``:
+
+    * ``codes`` uint8 [n_data, nwin + 2k - 1], one read shard per data row;
+    * ``accept_tups``, ``pfilters`` uint32: the sketch tables;
+    * ``ref_ids`` uint32 [R], ``ref_gid`` int [R]: postings (k-mer, genome)
+      in n_db equal slices, each sorted;
+
+    returns uint32 [num_refs]: per genome, its postings found in the
+    distinct union of the shards' sketches.  K1 (K2 on overflow) sketches
+    each data row on its device, the union is ``device_union`` over the
+    mesh, and K3 tests each db slice against it on the slice's device."""
+    mesh = _as_mesh(mesh)
+    p = SketchParams(k=k, subk=subk, drlevel=drlevel)
+    tl = p.kmer_len
+
+    def step(codes, accept_tups, pfilters, ref_ids, ref_gid) -> np.ndarray:
+        codes = np.asarray(codes, np.uint8)
+        if codes.shape != (mesh.n_data, nwin + tl - 1):
+            raise ValueError(f"codes must be [{mesh.n_data}, "
+                             f"{nwin + tl - 1}], got {codes.shape}")
+        tables: dict = {}
+        parts = [np.zeros(0, np.uint32)]
+        for d in mesh.local_rows:
+            dev = mesh.row(d)[0].device
+            if dev not in tables:
+                tables[dev] = make_accept_tables(accept_tups, pfilters, subk,
+                                                 dev)
+            parts.append(sketch_cuda.sketch_windows(codes[d], p,
+                                                    tables[dev])[0])
+        keys = np.concatenate(gather_arrays(np.concatenate(parts)))
+        uniq = device_union(keys, mesh)
+        # 0xFFFFFFFF is the JAX step's pad: it never matches there
+        uniq = uniq[uniq != _U32]
+        ref_ids = np.asarray(ref_ids, np.uint32)
+        ref_gid = np.asarray(ref_gid, np.int64)
+        per = -(-ref_ids.size // mesh.n_db)
+        counts = np.zeros(num_refs, np.int64)
+        for s in mesh.row(mesh.local_rows[0]):
+            sl = slice(s.db * per, (s.db + 1) * per)
+            hay = StaticHaystack(uniq, None, s.device)
+            hit, _ = merge.member(hay.hay, None,
+                                  u32_tensor(ref_ids[sl]).to(s.device),
+                                  hay.index)
+            got = torch.zeros(num_refs, dtype=torch.int64, device=s.device)
+            got.index_add_(0, torch.from_numpy(ref_gid[sl]).to(s.device),
+                           hit.to(torch.int64))
+            counts += got.cpu().numpy()
+        return counts.astype(np.uint32)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# set -u / -q
+# ---------------------------------------------------------------------------
+
+def _unique_on(ids: np.ndarray, dev, return_counts: bool):
+    """(distinct values ascending, exact int64 counts or None) of a uint32
+    array, sorted on ``dev``."""
+    x = u32_tensor(ids).to(dev) ^ _U32_FLIP
+    got = torch.unique(x, sorted=True, return_counts=return_counts)
+    vals, counts = got if return_counts else (got, None)
+    vals = (vals ^ _U32_FLIP).cpu().numpy().view(np.uint32)
+    return vals, None if counts is None else counts.cpu().numpy() \
+        .astype(np.int64)
+
+
+def device_union(ids, mesh, return_counts: bool = False):
+    """``np.unique(ids)`` of a uint32 array: the distinct values ascending
+    and, with ``return_counts``, their exact occurrence counts (int64).
+    ``mesh`` is a Mesh, or a device for one shard.  Each data row takes
+    ``ceil(n / n_data)`` ids and sorts them on its device; the rows' runs
+    are gathered and merged on the host."""
+    mesh = _as_mesh(mesh)
+    ids = np.ascontiguousarray(ids, dtype=np.uint32)
+    if ids.size == 0:
+        empty = np.zeros(0, np.uint32)
+        return (empty, np.zeros(0, np.int64)) if return_counts else empty
+    if mesh.n_data == 1:
+        vals, counts = _unique_on(ids, mesh.shards[0].device, return_counts)
+        return (vals, counts) if return_counts else vals
+    per = -(-ids.size // mesh.n_data)
+    runs, cnts = [np.zeros(0, np.uint32)], [np.zeros(0, np.int64)]
+    for d in mesh.local_rows:
+        part = ids[d * per:(d + 1) * per]
+        if part.size:
+            vals, counts = _unique_on(part, mesh.row(d)[0].device, True)
+            runs.append(vals)
+            cnts.append(counts)
+    vals = np.concatenate(gather_arrays(np.concatenate(runs)))
+    uniq, inv = np.unique(vals, return_inverse=True)
+    if not return_counts:
+        return uniq
+    counts = np.concatenate(gather_arrays(np.concatenate(cnts)))
+    tot = np.bincount(inv.reshape(-1), weights=counts.astype(np.float64),
+                      minlength=uniq.size)
+    return uniq, tot.astype(np.int64)

@@ -2,12 +2,13 @@
 
 The port of ``metakssd_tpu/pipeline.py`` (``run_stage1``, ``sketch_file``
 with ``-P``, the streaming fastq path, the batched multi-file path,
-``--byread`` and the ``--ckpt`` snapshots), with its options, input
-listing and ``-L`` handling.  Parsing, the unique/count
-tail and the on-disk format are the port's copies of the JAX package's
-host code; the window sketch runs through ``ops/sketch.py`` on the named
-device.  The output directory is byte-identical to
-``metakssd_tpu.pipeline.run_stage1``'s for the same inputs.
+``--byread``, the ``--ckpt`` snapshots and ``--mesh``), with its options,
+input listing and ``-L`` handling.  Parsing, the unique/count tail and the
+on-disk format are the port's copies of the JAX package's host code; the
+window sketch runs through ``ops/sketch.py`` on the named device, or with
+``--mesh N`` through ``parallel/mesh.sharded_sketch`` over N shards.  The
+output directory is byte-identical to ``metakssd_tpu.pipeline.run_stage1``'s
+for the same inputs.
 """
 
 from __future__ import annotations
@@ -90,15 +91,6 @@ def resolve_shuffle(dr_file: str | None, k: int, drlevel: int,
     return shuf
 
 
-def check_supported(opts: SketchOptions) -> None:
-    """Raise for options whose code paths are not ported yet, naming
-    their item in ROADMAP.md's port queue."""
-    if opts.mesh > 1:
-        raise NotImplementedError(
-            "--mesh is not ported to metakssd_tpu_torch yet "
-            "(ROADMAP.md, port queue item 3)")
-
-
 def _ckpt_key(path: str, shuf, mode: str, min_qual: int) -> dict:
     st = os.stat(path)
     return {"file": os.path.abspath(path), "size": st.st_size,
@@ -166,30 +158,36 @@ def _sketch_fastq_streaming(path: str, shuf, mode: str, min_occ: int,
 def sketch_file(path: str, shuf, opts: SketchOptions, device, tables=None,
                 ckpt_file: str | None = None
                 ) -> list[tuple[np.ndarray, np.ndarray | None]]:
-    """Sketch one input file into per-component (ids, counts)."""
-    check_supported(opts)
+    """Sketch one input file into per-component (ids, counts).  With
+    ``opts.mesh`` > 1 the whole file's code stream is sketched over that
+    many data shards (``parallel/mesh.sharded_sketch``), never streamed."""
+
+    def sets(codes, mode):
+        if opts.mesh > 1:
+            from metakssd_tpu_torch.parallel import mesh as pmesh
+            dr = pmesh.sharded_sketch(
+                codes, shuf, pmesh.make_mesh(opts.mesh, 1, device), tables)
+            return sets_from_drtuples(dr, shuf.params, mode=mode,
+                                      min_occ=opts.min_occ)
+        return sketch.sketch_to_sets(codes, shuf, device, mode=mode,
+                                     min_occ=opts.min_occ, tables=tables)
+
     if opts.pipecmd:
         # reference treats piped input as fastq (command_dist.c:378)
         codes, _ = seqio.pipecmd_to_codes(
             opts.pipecmd, path,
             min_qual=0 if opts.abundance else opts.min_qual)
-        return sketch.sketch_to_sets(codes, shuf, device,
-                                     mode="koc" if opts.abundance else "occ",
-                                     min_occ=opts.min_occ, tables=tables)
+        return sets(codes, "koc" if opts.abundance else "occ")
     if seqio.sniff_format(path) == "fastq":
         mode = "koc" if opts.abundance else "occ"
         # reference -A path (mt_shortreads2koc) has no quality filter
         q = 0 if opts.abundance else opts.min_qual
-        if native.available():
+        if opts.mesh <= 1 and native.available():
             return _sketch_fastq_streaming(path, shuf, mode, opts.min_occ,
                                            q, device, tables, ckpt_file)
         codes, _ = seqio.fastq_to_codes(path, min_qual=q)
-        return sketch.sketch_to_sets(codes, shuf, device, mode=mode,
-                                     min_occ=opts.min_occ, tables=tables)
-    codes = seqio.fasta_to_codes(path)
-    return sketch.sketch_to_sets(codes, shuf, device,
-                                 mode="uniq" if opts.dedup else "set",
-                                 min_occ=opts.min_occ, tables=tables)
+        return sets(codes, mode)
+    return sets(seqio.fasta_to_codes(path), "uniq" if opts.dedup else "set")
 
 
 def sketch_byread(path: str, shuf, out_dir: str, *, device, **kw) -> None:
@@ -342,7 +340,6 @@ def run_stage1(inputs: list[str], shuf, out_dir: str,
     batches in ``stream{i}.ckpt``); a rerun after a crash resumes from
     them, and the directory goes once the sketch dir is written."""
     opts = opts or SketchOptions()
-    check_supported(opts)
     dev = resolve_device(device)
     p = shuf.params
     tables = accept_tables(shuf, dev) if sketch.on_device_path(shuf) \
@@ -355,7 +352,10 @@ def run_stage1(inputs: list[str], shuf, out_dir: str,
         koc = False
         opts = dataclasses.replace(opts, abundance=False)
 
+    # --mesh keeps every file on its own sharded sketch, as the JAX
+    # package does (metakssd_tpu/pipeline.py:406-408)
     batchable = (len(inputs) > 1 and not opts.pipecmd and
+                 opts.mesh <= 1 and
                  (not koc or
                   all(seqio.sniff_format(f) == "fastq" for f in inputs)))
     ckpt_dir = os.path.join(out_dir, ".stage1_ckpt") if opts.ckpt else None

@@ -1,9 +1,10 @@
 """Lossless sketch set algebra on a device: the port of
 ``metakssd_tpu/setops.py`` (reference command_set.c).
 
-* ``sketch_union`` (-u) and ``uniq_sketch_union`` (-q): one device sort
-  per component (``parallel.mesh.device_union``), with exact counts for
-  the k-mers present in exactly one genome.
+* ``sketch_union`` (-u) and ``uniq_sketch_union`` (-q): a device sort per
+  component and data shard (``parallel.mesh.device_union`` over every
+  visible device and every rank), with exact counts for the k-mers present
+  in exactly one genome.
 * ``sketch_operate`` (-s / -i): the membership of every genome's ids in the
   sorted pan is one K3 call (``ops.merge``) per component, in identity
   mode, through the pan's ``StaticHaystack`` index; the per-genome kept
@@ -36,7 +37,7 @@ from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.ops import merge
 from metakssd_tpu_torch.ops.sketch_cuda import _as_u32_bits
 from metakssd_tpu_torch.params import LD_FCTR
-from metakssd_tpu_torch.parallel.mesh import device_union
+from metakssd_tpu_torch.parallel.mesh import device_union, make_mesh
 from metakssd_tpu_torch.utils import TIMER
 
 _LOW32 = 0xFFFFFFFF
@@ -44,25 +45,25 @@ _LOW32 = 0xFFFFFFFF
 
 def sketch_union(insketch: str, outdir: str, *, device) -> None:
     """-u: the union of all sketches -> ``pan.c``."""
-    dev = resolve_device(device)
+    mesh = make_mesh(None, 1, device)
     with TIMER.stage("set.union"):
         cd = CoDir.read(insketch, want_abund=False)
         os.makedirs(outdir, exist_ok=True)
         cd.stat.write(outdir)
         for c in range(cd.stat.comp_num):
-            device_union(cd.ids[c], dev).tofile(
+            device_union(cd.ids[c], mesh).tofile(
                 os.path.join(outdir, f"{PAN_PREFIX}.{c}"))
 
 
 def uniq_sketch_union(insketch: str, outdir: str, *, device) -> None:
     """-q: the k-mers present in exactly one genome -> ``uniq_pan.c``."""
-    dev = resolve_device(device)
+    mesh = make_mesh(None, 1, device)
     with TIMER.stage("set.uniq_union"):
         cd = CoDir.read(insketch, want_abund=False)
         os.makedirs(outdir, exist_ok=True)
         cd.stat.write(outdir)
         for c in range(cd.stat.comp_num):
-            vals, counts = device_union(cd.ids[c], dev, return_counts=True)
+            vals, counts = device_union(cd.ids[c], mesh, return_counts=True)
             vals[counts == 1].tofile(
                 os.path.join(outdir, f"{UNIQ_PAN_PREFIX}.{c}"))
 

@@ -219,33 +219,44 @@ def test_sketch_then_search_keepcofile(genome_inputs, capsys):
 
 
 def test_composite_shard_db_raises(genome_inputs, capsys):
-    """composite --shard-db 2 names ROADMAP item 8 (more than one
-    device); --shard-db 1 runs (tests/test_torch_shard_profile.py)."""
+    """composite --shard-db 2, which raised before the port had more than
+    one shard, prints the JAX CLI's report, with and without ``-b`` (the
+    .abv files too), against a MarkerDB of the two read sets."""
     tmp, gdir, fqs, shufp = genome_inputs
     ref, qry = str(tmp / "sd_ref"), str(tmp / "sd_qry")
     assert cli.main(["dist", "-L", shufp, "-o", ref, "--device", "cpu",
-                     gdir]) == 0
+                     *fqs]) == 0
     assert cli.main(["dist", "-L", shufp, "-A", "-o", qry, "--device",
                      "cpu", fqs[0]]) == 0
     capsys.readouterr()
-    assert cli.main(["composite", "-r", ref, "-q", qry, "--shard-db", "2",
-                     "--device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "item 8" in err
+    a, b = _both(capsys, ["composite", "-r", ref, "-q", qry, "--shard-db",
+                          "2"],
+                 ["composite", "-r", ref, "-q", qry, "--shard-db", "2",
+                  "--device", "cpu"])
+    assert a and a == b
+    va, vb = str(tmp / "sd_jax_abv"), str(tmp / "sd_port_abv")
+    _both(capsys, ["composite", "-r", ref, "-q", qry, "-b", "-o", va,
+                   "--shard-db", "2"],
+          ["composite", "-r", ref, "-q", qry, "-b", "-o", vb, "--shard-db",
+           "2", "--device", "cpu"])
+    _same_tree(va, vb)
 
 
 def test_profile_shard_db_raises(genome_inputs, capsys):
-    """profile --shard-db 2 names ROADMAP item 8 too."""
+    """profile --shard-db 2 writes the JAX CLI's sketch and TSVs, against
+    a MarkerDB of the genomes and the two read sets."""
     tmp, gdir, fqs, shufp = genome_inputs
     ref = str(tmp / "psd_ref")
     assert cli.main(["dist", "-L", shufp, "-o", ref, "--device", "cpu",
-                     gdir]) == 0
-    capsys.readouterr()
-    assert cli.main(["profile", "-L", shufp, "-r", ref, "-o",
-                     str(tmp / "psd_out"), "--shard-db", "2", "--device",
-                     "cpu", fqs[0]]) == 1
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "item 8" in err
+                     gdir, *fqs]) == 0
+    a, b = str(tmp / "psd_jax"), str(tmp / "psd_port")
+    _both(capsys, ["profile", "-L", shufp, "-r", ref, "-o", a, "--shard-db",
+                   "2", fqs[0]],
+          ["profile", "-L", shufp, "-r", ref, "-o", b, "--shard-db", "2",
+           "--device", "cpu", fqs[0]])
+    _same_tree(a, b)
+    with open(os.path.join(b, "species_coverage.tsv")) as f:
+        assert "r0.fq" in f.read()
 
 
 _DEVICE_VERBS = ("dist", "set", "composite", "profile")

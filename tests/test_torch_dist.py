@@ -290,7 +290,7 @@ def test_shard_db_one_matches_mesh(search_setup, case):
         ref, qry = _long_rows(tmp)
     else:
         ref, qry = refco, _dup_queries(qryco, str(tmp / "qry_dup"))
-    got = mesh.sharded_shared_counts(ref, qry, 1, "cpu")
+    got = mesh.sharded_shared_counts(ref, qry, "cpu")
     want = jax_mesh.sharded_shared_counts(
         ref, qry, jax_mesh.make_mesh(n_data=1, n_db=1))
     np.testing.assert_array_equal(got, want)
@@ -311,11 +311,16 @@ def test_shard_db_one_matches_mesh(search_setup, case):
 
 
 def test_shard_db_two_raises(search_setup, capsys):
+    """dist -r --shard-db 2, which raised before the port had more than one
+    shard, writes the JAX CLI's distance.out (and kept sharedk_ct.dat)."""
     tmp, _, _, _, refco, qryco = search_setup
-    assert cli.main(["dist", "-r", refco, "--shard-db", "2", "-o",
-                     str(tmp / "shard2"), "--device", "cpu", qryco]) == 1
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "item 8" in err
+    a, b = str(tmp / "jax_shard2"), str(tmp / "port_shard2")
+    assert jax_cli.main(["dist", "-r", refco, "--shard-db", "2", "--keepskf",
+                         "-o", a, qryco]) == 0
+    assert cli.main(["dist", "-r", refco, "--shard-db", "2", "--keepskf",
+                     "-o", b, "--device", "cpu", qryco]) == 0
+    _same_outputs(a, b)
+    capsys.readouterr()
 
 
 def test_level_number_raises(search_setup, capsys):

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from metakssd_tpu import cli as jax_cli
 from metakssd_tpu import composite as jax_composite
 from metakssd_tpu import pipeline as jax_pipeline
 from metakssd_tpu import profile_e2e as jax_profile_e2e
@@ -152,10 +153,24 @@ def test_binvec_abundance_vectors_match(slice_setup):
 
 @pytest.mark.parametrize("flag", [["--mesh", "2"]])
 def test_unported_options_raise(slice_setup, flag, capsys):
+    """``dist --mesh 2``, which raised before the port had it, writes the
+    JAX CLI's sketch dir and the port's serial one, byte for byte."""
     tmp, shufp, gdir, _, _ = slice_setup
-    assert cli.main(["dist", "-L", shufp, "-o", str(tmp / "x"),
-                     "--device", "cpu", *flag, gdir]) == 1
-    assert "ROADMAP.md" in capsys.readouterr().err
+    dirs = [str(tmp / f"mesh_{k}") for k in ("jax", "port", "serial")]
+    assert jax_cli.main(["dist", "-L", shufp, "-o", dirs[0], *flag,
+                         gdir]) == 0
+    assert cli.main(["dist", "-L", shufp, "-o", dirs[1], "--device", "cpu",
+                     *flag, gdir]) == 0
+    assert cli.main(["dist", "-L", shufp, "-o", dirs[2], "--device", "cpu",
+                     gdir]) == 0
+    capsys.readouterr()
+    for other in dirs[1:]:
+        names = sorted(os.listdir(dirs[0]))
+        assert names and names == sorted(os.listdir(other))
+        for f in names:
+            with open(os.path.join(dirs[0], f), "rb") as a, \
+                    open(os.path.join(other, f), "rb") as b:
+                assert a.read() == b.read(), f
 
 
 def test_cuda_without_gpu_raises():

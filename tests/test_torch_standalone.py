@@ -41,10 +41,11 @@ def test_source_imports_neither_jax_nor_jax_package(rel):
 
 def test_every_module_and_verb_runs_standalone(tmp_path):
     """Import every port module, then run shuffle, dist (stage I, with
-    --byread, -P and --ckpt, and the sketch search), profile (also
-    --shard-db 1 --ckpt), set -g/-q/-i/-u, composite -b/-i/-s (sparse and
-    --dense) and -q --shard-db 1, reverse (also -b), postprocess and
-    primer with ``--device cpu``."""
+    --byread, -P and --ckpt, and the sketch search, also --shard-db 2),
+    profile (also --shard-db 1 --ckpt and --mesh 2 --shard-db 2), set
+    -g/-q/-i/-u, composite -b/-i/-s (sparse and --dense) and -q
+    --shard-db 1, reverse (also -b), postprocess and primer with
+    ``--device cpu``."""
     code = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
         import numpy as np
@@ -75,12 +76,17 @@ def test_every_module_and_verb_runs_standalone(tmp_path):
             t + "/prof", *cpu, t + "/s.fq")
         run("profile", "-L", t + "/L2.shuf", "-r", t + "/db", "-o",
             t + "/prof1", "--shard-db", "1", "--ckpt", *cpu, t + "/s.fq")
+        run("profile", "-L", t + "/L2.shuf", "-r", t + "/db", "-o",
+            t + "/prof2", "--mesh", "2", "--shard-db", "2", *cpu,
+            t + "/s.fq")
         run("dist", "-L", t + "/L2.shuf", "--byread", "-o", t + "/br", *cpu,
             t + "/s.fq")
         run("reverse", "-L", t + "/L2.shuf", "-b", "-o", t + "/rb", t + "/br")
         run("dist", "-L", t + "/L2.shuf", "-P", "cat", "--ckpt", "-o",
             t + "/piped", *cpu, t + "/s.fq")
         run("dist", "-r", t + "/db", "-o", t + "/search", *cpu, t + "/db")
+        run("dist", "-r", t + "/db", "-o", t + "/search2", "--shard-db", "2",
+            *cpu, t + "/db")
         run("set", "-g", t + "/tax.tsv", "-o", t + "/pan", *cpu, t + "/db")
         run("set", "-q", "-o", t + "/uq", *cpu, t + "/pan")
         run("set", "-i", t + "/uq", "-o", t + "/mk", *cpu, t + "/pan")
