@@ -135,11 +135,20 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    enqueueing): the median and range of PROBE_REPLAYS timings, taken in
    turns with one ``torch.sum``'s for the sums (replayed alike), and the
    plain version's;
+8b. bench: ``python -m metakssd_tpu_torch.bench`` (the root bench.py's
+   legs: sketch reads/s on the card and the CPU, ``kernel_chain_mwin``,
+   profile latency, abv q/s sparse and dense, e2e profile cold and
+   steady), in a child process, at the root bench's defaults (200K reads,
+   4096 species) and at 4M reads against 16,384 species x 3000 ids (the
+   CPU sketch there repeated once); each
+   line is printed, must hold every key positive, and its legs' launch
+   counts (each from 0) must show K1 on the card in the sketch, kernel
+   (at least 16) and e2e legs;
 9. cuda tests: ``pytest -m cuda`` on the five cuda-marked test files.
 
 The line before the last is the kernels' JSON record, with the launch
 counts of the ``profile``, ``dist --byread``, ``dist --mesh 4`` and
-``profile --mesh 4`` legs (K1, K2), of the ``dist -r --device cuda``,
+``profile --mesh 4`` legs and of each bench run's legs (K1, K2), of the ``dist -r --device cuda``,
 ``dist -r --shard-db 1``, ``set --device cuda``, ``profile --shard-db 1``, ``profile --shard-db 4``,
 ``composite --shard-db 4`` and ``dist -r --shard-db 4`` legs (K3 and its
 index build), each leg's in ``launches_by_leg`` and
@@ -1640,7 +1649,6 @@ def phase_probes() -> list:
     from metakssd_tpu_torch.probes import (probe_floor_chunk,
                                            probe_floor_noread,
                                            probe_kernel_cost, probe_r4)
-    from metakssd_tpu_torch.ops.probe import out_rows
     from metakssd_tpu_torch.probes._common import graph_ms, vary
     from metakssd_tpu_torch.probes.bench_member import time_ms
 
@@ -1681,22 +1689,17 @@ def phase_probes() -> list:
                 print(f"  {pid} {v.name}: no torch.sum for "
                       f"{v.tiles.dtype} here ({e})", flush=True)
                 library = None
-        # a sum's dispatch zeroes its output before the kernel adds into
-        # it (probe.out_rows), where torch.sum is one kernel: that zeroing
-        # is timed alone in the same turns
-        runs, lib_runs, zero_runs = [], [], []
+        runs, lib_runs = [], []
         for _ in range(PROBE_REPLAYS):
             runs.append(graph_ms(v.run, inputs, 5))
             if library is not None:
                 lib_runs.append(graph_ms(library, inputs, 5))
-                zero_runs.append(graph_ms(out_rows, inputs, 5))
         del inputs
         ms = statistics.median(runs)
         lib_ms = statistics.median(lib_runs) if lib_runs else None
         bound_ms, bound_by = _bound(v.nbytes, v.ops)
         lib = "none" if lib_ms is None else \
-            f"{lib_ms:.4f} ({min(lib_runs):.4f}-{max(lib_runs):.4f}; " \
-            f"the output's zeroing {statistics.median(zero_runs):.4f})"
+            f"{lib_ms:.4f} ({min(lib_runs):.4f}-{max(lib_runs):.4f})"
         print(f"  {pid} {v.name:30s} {ms:8.4f} ms on the card (median of "
               f"{PROBE_REPLAYS}, {min(runs):.4f}-{max(runs):.4f}; "
               f"{r['ms']:.4f} per path dispatch)  plain {plain_ms:9.4f}  "
@@ -1711,13 +1714,111 @@ def phase_probes() -> list:
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib_ms,
                     "library_ms_range": [min(lib_runs), max(lib_runs)]
-                    if lib_runs else None,
-                    "zeroing_ms": statistics.median(zero_runs)
-                    if zero_runs else None})
+                    if lib_runs else None})
         del got, want
     del runs
     torch.cuda.empty_cache()
     return out
+
+
+# python -m metakssd_tpu_torch.bench at the root bench's defaults (200K
+# reads, 4096 species) and at a sample users call real: the profile cell's
+# 4M reads (of 100 bp) against 16,384 species x 3000 ids, about 49M
+# postings (a GTDB-scale MarkerDB holds about 59M).  At 4M the CPU sketch
+# (K1's plain version) takes about 80 s a repeat, so it runs once there.
+BENCH_SIZES = (("200K reads x 4096 species", {}),
+               ("4M reads x 16384 species",
+                {"MKSSD_BENCH_READS": "4000000",
+                 "MKSSD_BENCH_SPECIES": "16384",
+                 "MKSSD_BENCH_CPU_REPS": "1"}))
+BENCH_LEG_TIMEOUT = 400           # seconds a leg of the bench may take
+BENCH_KEYS = ("cpu_reads_per_s", "kernel_mwin_per_s", "profile_latency_s",
+              "abv_queries_per_s", "abv_dense_queries_per_s", "e2e_total_s",
+              "e2e_cold_total_s")
+BENCH_K_REPS = 16                 # K1 launches of a kernel_chain_mwin pass
+
+
+def phase_bench(work: str) -> list:
+    """The bench at BENCH_SIZES, each run in a child process: it must
+    exit 0 and report every key positive, and its kernel leg must have
+    launched K1 at least BENCH_K_REPS times and its sketch and e2e legs
+    K1 on the card (the counts are the legs' own, from 0).  Returns
+    (label, bench line) per size."""
+    out = []
+    for label, env_size in BENCH_SIZES:
+        env = dict(os.environ, MKSSD_BENCH_CACHE=os.path.join(
+            work, "bench_" + label.split()[0]),
+            MKSSD_BENCH_TIMEOUT=str(BENCH_LEG_TIMEOUT), **env_size)
+        # the set and composite legs above ran in this process with their
+        # -p default of 1, which exports OMP_NUM_THREADS=1 (the CLI's -p):
+        # the bench starts as a user's shell would, without it
+        env.pop("OMP_NUM_THREADS", None)
+        t = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "metakssd_tpu_torch.bench"], cwd=ROOT,
+            env=env, capture_output=True, text=True,
+            timeout=6 * BENCH_LEG_TIMEOUT)
+        dt = time.time() - t
+        for ln in proc.stderr.splitlines():
+            if ln.startswith("bench:"):
+                print("  " + ln, flush=True)
+        check(proc.returncode == 0, f"bench ({label}) exited "
+              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"  bench, {label}, {dt:.1f} s: {json.dumps(line)}",
+              flush=True)
+        ex = line["extra"]
+        check(line["value"] > 0, f"bench ({label}): value {line['value']}")
+        for key in BENCH_KEYS:
+            check(ex.get(key, 0) > 0, f"bench ({label}): {key} is "
+                  f"{ex.get(key)}")
+        stages = ex.get("e2e_stages", {})
+        check(stages and min(stages.values()) >= 0 and
+              sum(stages.values()) > 0, f"bench ({label}): e2e_stages "
+              f"{stages}")
+        launches = ex["launches"]
+        check(launches["kernel"].get("sketch_compact", 0) >= BENCH_K_REPS,
+              f"bench ({label}): kernel leg launches {launches['kernel']}")
+        for leg in ("sketch", "e2e"):
+            check(launches[leg].get("sketch_compact", 0) > 0,
+                  f"bench ({label}): {leg} leg launched no K1 on the card")
+        out.append((label, line))
+    _chain_split()
+    return out
+
+
+def _chain_split() -> None:
+    """A ``kernel_chain_mwin`` pass (BENCH_K_REPS dispatches of 2^24
+    windows) taken apart, best of 3: the host's time to queue it, the
+    pass with its readback (what the bench's rate divides), and the
+    card's time for it replayed from a CUDA graph, whole and K1 alone
+    per dispatch (``window_compact``: its counter's zeroing and K1)."""
+    import torch
+    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.ops.kernel_bench import Chain, default_shuf
+    from metakssd_tpu_torch.probes._common import graph_ms
+    nwin = 1 << 24
+    chain = Chain(default_shuf(), nwin, BENCH_K_REPS, "cuda")
+    chain.run()
+    queued, whole = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = chain.launch()
+        queued.append(time.perf_counter() - t0)
+        pending.cpu()
+        whole.append(time.perf_counter() - t0)
+    card = graph_ms(lambda _: chain.launch(), [None], 5)
+    k1 = graph_ms(lambda c: sketch_cuda.window_compact(
+        c, chain.tables, chain.p, chain.cap)[0], chain.codes, 5)
+    print(f"  kernel_chain_mwin pass, {BENCH_K_REPS} x 2^24 windows (best "
+          f"of 3): queued by the host in {1e3 * min(queued):.4f} ms, with "
+          f"its readback {1e3 * min(whole):.4f} ms "
+          f"({nwin * BENCH_K_REPS / min(whole) / 1e6:.0f} Mwin/s); on the "
+          f"card (CUDA graph) {card:.4f} ms, K1 {k1:.4f} ms a dispatch",
+          flush=True)
+    del chain
+    torch.cuda.empty_cache()
 
 
 def phase_cuda_tests() -> None:
@@ -1810,6 +1911,10 @@ def main(argv=None) -> int:
         t0 = time.time()
         probes = phase_probes()
         _phase("probes", t0)
+
+        t0 = time.time()
+        bench = phase_bench(work)
+        _phase("bench", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1828,6 +1933,11 @@ def main(argv=None) -> int:
                    "dist --byread": fres["byread_launches"],
                    "dist --mesh 4": ml["dist --mesh 4"],
                    "profile --mesh 4": ml["profile --mesh 4"]}
+    for label, line in bench:
+        legs = line["extra"]["launches"].values()
+        sketch_legs["bench, " + label] = {
+            name: sum(leg.get(name, 0) for leg in legs)
+            for name in ("sketch_compact", "sketch_full")}
     k3_legs = {"dist -r": qres["launches"],
                "dist -r --shard-db 1": qres["shard_launches"],
                "set": setres["launches"],

@@ -25,17 +25,37 @@
 //
 // Layout: element [b, r, l] of a tile tensor lies at (b*tile_rows + r)*128 +
 // l; the window (b, r, l) reads rows r .. r+TL-1 of lane l.  The output is
-// [nb, 128] int32 (the TPU's [nb, 1, 128]), zeroed by the caller.
+// [nb, 128] int32 (the TPU's [nb, 1, 128]).
 //
 // The TPU's grid walked the blocks in order on one core; here a block of
-// 128 lanes x 4 row groups takes kPartRows rows of one tile block, and the
-// parts of a tile block meet in its output row through one atomicAdd (or
-// atomicXor) per lane.  Wrapping 32-bit addition and XOR are associative
-// and commutative, so the result is exact whatever the order.  What bounds
-// each kernel on this card: the floors and the window math move each tile
-// byte once (bytes, 3.35 TB/s); the gather and the search are chains of
-// dependent shared-memory loads, one per step and window (latency, which
-// neither roofline bound sees).
+// 128 lanes x 4 row groups takes an equal share of the rows of one tile
+// block (tile block blockIdx.x, share blockIdx.y of gridDim.y).  The
+// blocks of a tile block meet in its output row in one of two ways, the
+// caller's choice:
+//
+//   atomic  (tickets == NULL) one share per kPartRows rows; each block adds
+//           (or XORs) its row into the output row with one atomic per lane,
+//           so the caller zeroes the output first: two launches.
+//   ticket  (tickets != NULL) as many shares as end the launch soonest on
+//           the card's block slots (the kernel's occupancy times the SMs),
+//           at most one per kPartRows rows: few blocks, long ones.  Each
+//           writes its row of the scratch buffer `partial` [nb, shares,
+//           128], and the last block of the tile block to finish (a ticket
+//           counter per tile block, reset by that block) combines the rows
+//           into the output row, which nothing zeroes: one launch.  Taking
+//           the ticket (a fence, then an atomic whose result the block
+//           waits for) costs a block about a microsecond at its end.
+//
+// A tile block with one share writes its output row in either way.  The
+// ticket counters are the caller's [>= nb] uint32, zero before the first
+// launch and left zero by every launch; two launches that run at the same
+// time must not share them (the wrapper keeps a buffer per stream).
+// Wrapping 32-bit addition and XOR are associative and commutative, so the
+// result is exact whatever the order.  What bounds each kernel on this
+// card: the floors and the window math move each tile byte once (bytes,
+// 3.35 TB/s); the gather and the search are chains of dependent
+// shared-memory loads, one per step and window (latency, which neither
+// roofline bound sees).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,9 +64,9 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kGroups = 4;                  // row groups per block
-constexpr int kPartRows = 128;              // rows per block
-constexpr int kRun = kPartRows / kGroups;   // contiguous windows per thread
+constexpr int kPartRows = 128;              // rows per block, at least
 constexpr int kMaxTL = 32;
+constexpr int kMaxShares = 65535;           // shares of a tile block: y
 
 enum Op { kSum = 0, kXor = 1, kNone = 2 };
 enum Type { kI32 = 0, kI8 = 1, kU16 = 2 };
@@ -58,22 +78,75 @@ __device__ inline int32_t load(const T* p) {
   return static_cast<int32_t>(*p);
 }
 
-// Combines the kGroups partial results of each lane and adds (or XORs)
-// them into the lane's output word.
 template <int OP>
-__device__ inline void block_reduce(uint32_t acc, uint32_t* out_row) {
+__device__ inline uint32_t combine(uint32_t a, uint32_t b) {
+  return OP == kXor ? (a ^ b) : (a + b);
+}
+
+// Rows [lo, hi) of [0, n) that this block takes: share blockIdx.y of
+// gridDim.y, the shares' sizes at most one row apart.  32-bit arithmetic:
+// a 64-bit division is a long software routine, paid by every thread.
+__device__ inline void block_rows(int n, int& lo, int& hi) {
+  const int g = static_cast<int>(gridDim.y);
+  const int y = static_cast<int>(blockIdx.y);
+  const int q = n / g, r = n % g;
+  lo = y * q + min(y, r);
+  hi = lo + q + (y < r ? 1 : 0);
+}
+
+// Combines the kGroups partial results of each lane, then the blocks of
+// the tile block (blockIdx.x): with one block (gridDim.y == 1) it writes
+// the lane's output word; otherwise, without tickets, it adds (or XORs)
+// it into the zeroed output word; with tickets it writes its row of
+// `partial` [nb, gridDim.y, 128], and the last block to take a ticket
+// combines the rows into the output row.
+template <int OP>
+__device__ inline void block_reduce(uint32_t acc, uint32_t* __restrict__ out,
+                                    uint32_t* partial, unsigned* tickets) {
   __shared__ uint32_t s[kGroups][kLanes];
+  __shared__ bool last;
+  const int b = blockIdx.x;
+  const int blocks = gridDim.y;
+  uint32_t* o = out + static_cast<size_t>(b) * kLanes + threadIdx.x;
   s[threadIdx.y][threadIdx.x] = acc;
   __syncthreads();
   if (threadIdx.y == 0) {
     uint32_t v = s[0][threadIdx.x];
-    for (int g = 1; g < kGroups; ++g)
-      v = OP == kXor ? (v ^ s[g][threadIdx.x]) : (v + s[g][threadIdx.x]);
-    if (OP == kXor)
-      atomicXor(out_row + threadIdx.x, v);
-    else
-      atomicAdd(out_row + threadIdx.x, v);
+    for (int g = 1; g < kGroups; ++g) v = combine<OP>(v, s[g][threadIdx.x]);
+    if (blocks == 1) {
+      *o = v;
+    } else if (tickets == nullptr) {
+      if (OP == kXor)
+        atomicXor(o, v);
+      else
+        atomicAdd(o, v);
+    } else {
+      partial[(static_cast<size_t>(b) * blocks + blockIdx.y) * kLanes +
+              threadIdx.x] = v;
+      __threadfence();          // the row is visible before the ticket
+    }
   }
+  if (blocks == 1 || tickets == nullptr) return;   // uniform over the grid
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    last = atomicAdd(&tickets[b], 1u) == static_cast<unsigned>(blocks - 1);
+  __syncthreads();
+  if (!last) return;             // uniform over the block
+  __threadfence();
+  // __ldcg: the other blocks' rows come from L2, never a stale L1 line; 0
+  // is the identity of both + and ^
+  const uint32_t* rows =
+      partial + static_cast<size_t>(b) * blocks * kLanes + threadIdx.x;
+  uint32_t v = 0;
+  for (int q = threadIdx.y; q < blocks; q += kGroups)
+    v = combine<OP>(v, __ldcg(rows + static_cast<size_t>(q) * kLanes));
+  s[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.y != 0) return;
+  v = s[0][threadIdx.x];
+  for (int g = 1; g < kGroups; ++g) v = combine<OP>(v, s[g][threadIdx.x]);
+  *o = v;
+  if (threadIdx.x == 0) tickets[b] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -83,19 +156,22 @@ __device__ inline void block_reduce(uint32_t acc, uint32_t* out_row) {
 template <typename T, int OP>
 __global__ void __launch_bounds__(kLanes * kGroups)
 floor_kernel(const T* __restrict__ tiles, int tile_rows, int row0, int row1,
-             uint32_t* __restrict__ out) {
+             uint32_t* __restrict__ out, uint32_t* partial,
+             unsigned* tickets) {
   const int b = blockIdx.x;
-  const int lo = row0 + blockIdx.y * kPartRows;
-  const int hi = min(lo + kPartRows, row1);
+  int lo, hi;
+  block_rows(row1 - row0, lo, hi);
+  lo += row0;
+  hi += row0;
   const T* col = tiles + static_cast<size_t>(b) * tile_rows * kLanes +
                  threadIdx.x;
   uint32_t acc = 0;
   for (int r = lo + threadIdx.y; r < hi; r += kGroups) {
     const uint32_t v = static_cast<uint32_t>(
         load(col + static_cast<size_t>(r) * kLanes));
-    acc = OP == kXor ? (acc ^ v) : (acc + v);
+    acc = combine<OP>(acc, v);
   }
-  block_reduce<OP>(acc, out + static_cast<size_t>(b) * kLanes);
+  block_reduce<OP>(acc, out, partial, tickets);
 }
 
 __global__ void block_index_kernel(uint32_t* __restrict__ out) {
@@ -125,13 +201,15 @@ struct Roll {
   __device__ inline uint64_t uni() const { return fwd <= rc ? fwd : rc; }
 };
 
-// Calls f(window row, roll) for this thread's kRun consecutive windows of
-// its part, in [0, nrows).
+// Calls f(window row, roll) for this thread's consecutive windows: a
+// quarter (its row group's) of its block's rows of [0, nrows).
 template <typename T, class F>
 __device__ inline void for_each_window(const T* tiles, int tile_rows,
                                        int nrows, int TL, F f) {
-  const int r0 = blockIdx.y * kPartRows + threadIdx.y * kRun;
-  const int r1 = min(r0 + kRun, nrows);
+  int lo, hi;
+  block_rows(nrows, lo, hi);
+  const int r0 = lo + (hi - lo) * static_cast<int>(threadIdx.y) / kGroups;
+  const int r1 = lo + (hi - lo) * static_cast<int>(threadIdx.y + 1) / kGroups;
   if (r0 >= r1) return;
   const T* col = tiles + static_cast<size_t>(blockIdx.x) * tile_rows * kLanes +
                  threadIdx.x;
@@ -148,7 +226,8 @@ __device__ inline void for_each_window(const T* tiles, int tile_rows,
 template <typename T>
 __global__ void __launch_bounds__(kLanes * kGroups)
 winmath_kernel(const T* __restrict__ tiles, int tile_rows, int nrows, int TL,
-               uint32_t* __restrict__ out) {
+               uint32_t* __restrict__ out, uint32_t* partial,
+               unsigned* tickets) {
   uint32_t acc = 0;
   for_each_window(tiles, tile_rows, nrows, TL, [&](int r, const Roll& roll) {
     const uint64_t u = roll.uni();
@@ -157,7 +236,7 @@ winmath_kernel(const T* __restrict__ tiles, int tile_rows, int nrows, int TL,
                        (roll.last_bad >= r ? 1u : 0u);
     acc += v;
   });
-  block_reduce<kSum>(acc, out + static_cast<size_t>(blockIdx.x) * kLanes);
+  block_reduce<kSum>(acc, out, partial, tickets);
 }
 
 // ---------------------------------------------------------------------------
@@ -170,15 +249,16 @@ template <typename TT>
 __global__ void __launch_bounds__(kLanes * kGroups)
 gather_kernel(const int32_t* __restrict__ tiles, int tile_rows, int nrows,
               const TT* __restrict__ table, int table_size, int mult, int ng,
-              uint32_t* __restrict__ out) {
+              uint32_t* __restrict__ out, uint32_t* partial,
+              unsigned* tickets) {
   extern __shared__ uint32_t s_tab[];
   const int tid = threadIdx.y * kLanes + threadIdx.x;
   for (int i = tid; i < table_size; i += kLanes * kGroups)
     s_tab[i] = static_cast<uint32_t>(table[i]);
   __syncthreads();
   const uint32_t mask = static_cast<uint32_t>(table_size - 1);
-  const int lo = blockIdx.y * kPartRows;
-  const int hi = min(lo + kPartRows, nrows);
+  int lo, hi;
+  block_rows(nrows, lo, hi);
   const int32_t* col = tiles +
                        static_cast<size_t>(blockIdx.x) * tile_rows * kLanes +
                        threadIdx.x;
@@ -192,7 +272,7 @@ gather_kernel(const int32_t* __restrict__ tiles, int tile_rows, int nrows,
       pos = (pos + res) & mask;
     }
   }
-  block_reduce<kSum>(acc, out + static_cast<size_t>(blockIdx.x) * kLanes);
+  block_reduce<kSum>(acc, out, partial, tickets);
 }
 
 // ---------------------------------------------------------------------------
@@ -228,7 +308,8 @@ search_kernel(const int32_t* __restrict__ tiles, int tile_rows, int nrows,
               SearchParams sp, const uint32_t* __restrict__ accept,
               int n_accept, const uint32_t* __restrict__ lev,
               const uint32_t* __restrict__ sig, int sig_words,
-              uint32_t* __restrict__ out) {
+              uint32_t* __restrict__ out, uint32_t* partial,
+              unsigned* tickets) {
   extern __shared__ uint32_t s_tab[];
   const bool use_sig = sig != nullptr;
   const int tid = threadIdx.y * kLanes + threadIdx.x;
@@ -270,35 +351,82 @@ search_kernel(const int32_t* __restrict__ tiles, int tile_rows, int nrows,
         ((top << sp.outer_bits) | right) << sp.pf_bits);
     if (hit && roll.last_bad < r) acc += base | pos;
   });
-  block_reduce<kSum>(acc, out + static_cast<size_t>(blockIdx.x) * kLanes);
+  block_reduce<kSum>(acc, out, partial, tickets);
 }
 
-inline dim3 parts_grid(int nb, int nrows) {
-  return dim3(static_cast<unsigned>(nb),
-              static_cast<unsigned>((nrows + kPartRows - 1) / kPartRows));
+inline int n_parts(int nrows) { return (nrows + kPartRows - 1) / kPartRows; }
+
+// The grid of a launch of `kernel` (with `smem` bytes of dynamic shared
+// memory) over nb tile blocks of nrows rows: nb blocks on x, and on y the
+// shares of a tile block.  Without tickets, one share per kPartRows rows.
+// With them, the number of shares, at most that many, that finishes
+// soonest if every block takes time in proportion to its rows and the card
+// runs `slots` blocks at a time (the fewest, where two counts tie: each
+// block of a tile block that has several pays a ticket).
+template <typename K>
+dim3 grid_for(K kernel, size_t smem, int nb, int nrows, bool tickets) {
+  if (!tickets)
+    return dim3(static_cast<unsigned>(nb),
+                static_cast<unsigned>(n_parts(nrows)));
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms < 1)
+      sms = 132;
+  }
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kLanes * kGroups, smem) != cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  const long long slots = static_cast<long long>(sms) * per_sm;
+  int shares = 1;
+  long long best = -1;
+  for (int g = 1; g <= n_parts(nrows); ++g) {
+    const long long rounds = (static_cast<long long>(nb) * g + slots - 1) /
+                             slots;
+    const long long span = rounds * ((nrows + g - 1) / g);
+    if (best < 0 || span < best) {
+      best = span;
+      shares = g;
+    }
+  }
+  return dim3(static_cast<unsigned>(nb), static_cast<unsigned>(shares));
+}
+
+// At most kMaxShares shares; scratch and tickets come together, and are
+// needed for the ticket reduce only.
+inline bool parts_ok(int nrows, const void* partial, const void* tickets) {
+  return n_parts(nrows) <= kMaxShares &&
+         (partial == nullptr) == (tickets == nullptr);
 }
 
 const dim3 kBlock(kLanes, kGroups);
 
 template <typename T>
 cudaError_t launch_floor(const void* tiles, int nb, int tile_rows, int row0,
-                         int row1, int op, uint32_t* out, cudaStream_t s) {
-  const dim3 grid = parts_grid(nb, row1 - row0);
+                         int row1, int op, uint32_t* out, uint32_t* partial,
+                         unsigned* tickets, cudaStream_t s) {
   const T* t = static_cast<const T*>(tiles);
-  if (op == kXor)
-    floor_kernel<T, kXor><<<grid, kBlock, 0, s>>>(t, tile_rows, row0, row1,
-                                                  out);
-  else
-    floor_kernel<T, kSum><<<grid, kBlock, 0, s>>>(t, tile_rows, row0, row1,
-                                                  out);
+  const auto kernel =
+      op == kXor ? floor_kernel<T, kXor> : floor_kernel<T, kSum>;
+  const dim3 grid = grid_for(kernel, 0, nb, row1 - row0, tickets != nullptr);
+  kernel<<<grid, kBlock, 0, s>>>(t, tile_rows, row0, row1, out, partial,
+                                 tickets);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_winmath(const void* tiles, int nb, int tile_rows,
-                           int nrows, int TL, uint32_t* out, cudaStream_t s) {
-  winmath_kernel<T><<<parts_grid(nb, nrows), kBlock, 0, s>>>(
-      static_cast<const T*>(tiles), tile_rows, nrows, TL, out);
+                           int nrows, int TL, uint32_t* out, uint32_t* partial,
+                           unsigned* tickets, cudaStream_t s) {
+  const dim3 grid =
+      grid_for(winmath_kernel<T>, 0, nb, nrows, tickets != nullptr);
+  winmath_kernel<T><<<grid, kBlock, 0, s>>>(static_cast<const T*>(tiles),
+                                            tile_rows, nrows, TL, out,
+                                            partial, tickets);
   return cudaGetLastError();
 }
 
@@ -306,43 +434,61 @@ cudaError_t launch_winmath(const void* tiles, int nb, int tile_rows,
 
 extern "C" {
 
-// Every function returns 0 or the cudaError_t of the launch.  `out` is a
-// zeroed [nb, 128] int32 buffer.
+// Every function returns 0 or the cudaError_t of the launch.  `out` is an
+// [nb, 128] int32 buffer.  With `partial` and `tickets` NULL (the atomic
+// reduce) the kernel adds into it, so it must be zeroed where parts > 1;
+// parts = ceil(rows / 128) of the rows reduced (row1 - row0 or nrows), at
+// most 65535.  Otherwise (the ticket reduce) it is written whole;
+// `partial` is scratch of [nb, parts, 128] int32 and `tickets` [>= nb]
+// uint32, zero and not in use by a launch that may run at the same time.
 
 // Rows [row0, row1) of every tile block, summed (op 0) or XORed (op 1);
 // op 2 writes each block's index without reading the tiles.  dtype: 0
 // int32, 1 int8, 2 uint16.
 int mkssd_probe_floor(const void* tiles, int dtype, int nb, int tile_rows,
-                      int row0, int row1, int op, void* out, void* stream) {
+                      int row0, int row1, int op, void* out, void* partial,
+                      void* tickets, void* stream) {
   if (nb < 1 || row0 < 0 || row1 <= row0 || row1 > tile_rows || op < 0 ||
-      op > kNone || dtype < kI32 || dtype > kU16)
+      op > kNone || dtype < kI32 || dtype > kU16 ||
+      (op != kNone && !parts_ok(row1 - row0, partial, tickets)))
     return cudaErrorInvalidValue;
   uint32_t* o = static_cast<uint32_t*>(out);
+  uint32_t* pt = static_cast<uint32_t*>(partial);
+  unsigned* tk = static_cast<unsigned*>(tickets);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (op == kNone) {
     block_index_kernel<<<nb, kLanes, 0, s>>>(o);
     return cudaGetLastError();
   }
   if (dtype == kI8)
-    return launch_floor<int8_t>(tiles, nb, tile_rows, row0, row1, op, o, s);
+    return launch_floor<int8_t>(tiles, nb, tile_rows, row0, row1, op, o, pt,
+                                tk, s);
   if (dtype == kU16)
-    return launch_floor<uint16_t>(tiles, nb, tile_rows, row0, row1, op, o, s);
-  return launch_floor<int32_t>(tiles, nb, tile_rows, row0, row1, op, o, s);
+    return launch_floor<uint16_t>(tiles, nb, tile_rows, row0, row1, op, o,
+                                  pt, tk, s);
+  return launch_floor<int32_t>(tiles, nb, tile_rows, row0, row1, op, o, pt,
+                               tk, s);
 }
 
 // The sum over the first nrows window rows of (uni_hi ^ uni_lo) | invalid,
 // for TL-base windows; needs nrows + TL - 1 <= tile_rows.  dtype: 0 int32,
 // 1 int8.
 int mkssd_probe_winmath(const void* tiles, int dtype, int nb, int tile_rows,
-                        int nrows, int TL, void* out, void* stream) {
+                        int nrows, int TL, void* out, void* partial,
+                        void* tickets, void* stream) {
   if (nb < 1 || nrows < 1 || TL < 1 || TL > kMaxTL ||
-      nrows + TL - 1 > tile_rows || (dtype != kI32 && dtype != kI8))
+      nrows + TL - 1 > tile_rows || (dtype != kI32 && dtype != kI8) ||
+      !parts_ok(nrows, partial, tickets))
     return cudaErrorInvalidValue;
   uint32_t* o = static_cast<uint32_t*>(out);
+  uint32_t* pt = static_cast<uint32_t*>(partial);
+  unsigned* tk = static_cast<unsigned*>(tickets);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kI8)
-    return launch_winmath<int8_t>(tiles, nb, tile_rows, nrows, TL, o, s);
-  return launch_winmath<int32_t>(tiles, nb, tile_rows, nrows, TL, o, s);
+    return launch_winmath<int8_t>(tiles, nb, tile_rows, nrows, TL, o, pt, tk,
+                                  s);
+  return launch_winmath<int32_t>(tiles, nb, tile_rows, nrows, TL, o, pt, tk,
+                                 s);
 }
 
 // ng chained lookups pos = (pos + table[pos]) & (table_size - 1) from
@@ -350,24 +496,30 @@ int mkssd_probe_winmath(const void* tiles, int dtype, int nb, int tile_rows,
 // the first nrows rows of int32 tiles.  table_dtype: 0 uint32, 2 uint16.
 int mkssd_probe_gather(const void* tiles, int nb, int tile_rows, int nrows,
                        const void* table, int table_dtype, int table_size,
-                       int mult, int ng, void* out, void* stream) {
+                       int mult, int ng, void* out, void* partial,
+                       void* tickets, void* stream) {
   if (nb < 1 || nrows < 1 || nrows > tile_rows || ng < 0 || table_size < 1 ||
       (table_size & (table_size - 1)) != 0 || table_size > 4096 ||
-      (table_dtype != kI32 && table_dtype != kU16))
+      (table_dtype != kI32 && table_dtype != kU16) ||
+      !parts_ok(nrows, partial, tickets))
     return cudaErrorInvalidValue;
-  const dim3 grid = parts_grid(nb, nrows);
+  uint32_t* pt = static_cast<uint32_t*>(partial);
+  unsigned* tk = static_cast<unsigned*>(tickets);
   const size_t smem = static_cast<size_t>(table_size) * sizeof(uint32_t);
+  const dim3 grid = table_dtype == kU16
+      ? grid_for(gather_kernel<uint16_t>, smem, nb, nrows, tk != nullptr)
+      : grid_for(gather_kernel<uint32_t>, smem, nb, nrows, tk != nullptr);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* t = static_cast<const int32_t*>(tiles);
   uint32_t* o = static_cast<uint32_t*>(out);
   if (table_dtype == kU16)
     gather_kernel<uint16_t><<<grid, kBlock, smem, s>>>(
         t, tile_rows, nrows, static_cast<const uint16_t*>(table), table_size,
-        mult, ng, o);
+        mult, ng, o, pt, tk);
   else
     gather_kernel<uint32_t><<<grid, kBlock, smem, s>>>(
         t, tile_rows, nrows, static_cast<const uint32_t*>(table), table_size,
-        mult, ng, o);
+        mult, ng, o, pt, tk);
   return cudaGetLastError();
 }
 
@@ -380,11 +532,13 @@ int mkssd_probe_gather(const void* tiles, int nb, int tile_rows, int nrows,
 int mkssd_probe_search(const void* tiles, int nb, int tile_rows, int nrows,
                        int k, int subk, int drlevel, const void* accept,
                        int n_accept, const void* lev, const void* sig,
-                       int sig_words, void* out, void* stream) {
+                       int sig_words, void* out, void* partial,
+                       void* tickets, void* stream) {
   const int TL = 2 * k;
   const int outctx = k - subk;
   if (nb < 1 || nrows < 1 || TL > kMaxTL || outctx < 0 || drlevel > subk ||
-      4 * subk > 32 || nrows + TL - 1 > tile_rows)
+      4 * subk > 32 || nrows + TL - 1 > tile_rows ||
+      !parts_ok(nrows, partial, tickets))
     return cudaErrorInvalidValue;
   if (sig == nullptr ? (n_accept < 1 || accept == nullptr)
                      : (lev == nullptr || sig_words < 0))
@@ -405,12 +559,14 @@ int mkssd_probe_search(const void* tiles, int nb, int tile_rows, int nrows,
       search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  search_kernel<<<parts_grid(nb, nrows), kBlock, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid =
+      grid_for(search_kernel, smem, nb, nrows, tickets != nullptr);
+  search_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tiles), tile_rows, nrows, sp,
       static_cast<const uint32_t*>(accept), n_accept,
       static_cast<const uint32_t*>(lev), static_cast<const uint32_t*>(sig),
-      sig_words, static_cast<uint32_t*>(out));
+      sig_words, static_cast<uint32_t*>(out),
+      static_cast<uint32_t*>(partial), static_cast<unsigned*>(tickets));
   return cudaGetLastError();
 }
 

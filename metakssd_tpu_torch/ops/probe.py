@@ -19,10 +19,13 @@ kernels (``csrc/probe.cu``) cover every variant:
 
 Each wrapper runs its plain PyTorch version when the tiles lie on the CPU,
 launches its kernel when they lie on a CUDA device, and raises on anything
-else.  The plain versions compute in int64 and wrap to int32, as the TPU
-kernels' int32 sums wrap.  Every result is int32 [nb, 1, 128].  u32 table
-entries travel in int32 tensors with the same bits; uint16 tiles and
-tables are ``torch.uint16`` tensors.
+else.  Where several CUDA blocks share a tile block, a kernel combines
+their rows in the way ``REDUCE`` names for it: ``"ticket"``, one launch
+(the last block adds the others' rows), or ``"atomic"``, the result
+zeroed first and each block adding into it.  The plain versions compute
+in int64 and wrap to int32, as the TPU kernels' int32 sums wrap.  Every
+result is int32 [nb, 1, 128].  u32 table entries travel in int32 tensors
+with the same bits; uint16 tiles and tables are ``torch.uint16`` tensors.
 """
 
 from __future__ import annotations
@@ -34,6 +37,13 @@ from metakssd_tpu_torch.ops.sketch_cuda import LAUNCHES, _as_u32_bits, \
     _raise_on
 
 LANES = 128
+PART_ROWS = 128               # rows a CUDA block takes, at least (kPartRows)
+MAX_SHARES = 65535            # CUDA blocks of a tile block (kMaxShares)
+# How each kernel combines the blocks of a tile block (csrc/probe.cu):
+# each the faster on the H100 (PERF.md, PR 9); the gather's chains of
+# dependent loads lose 7% to the ticket's grid of fewer, longer blocks
+REDUCE = {"floor": "ticket", "winmath": "ticket", "gather": "atomic",
+          "search": "ticket"}
 OPS = {"sum": 0, "xor": 1, "none": 2}
 _TILE_TYPES = {torch.int32: 0, torch.int8: 1, torch.uint16: 2}
 _LOW32 = 0xFFFFFFFF
@@ -219,11 +229,46 @@ def _cuda(tiles: torch.Tensor, name: str):
             torch.cuda.current_stream(tiles.device).cuda_stream)
 
 
-def out_rows(tiles: torch.Tensor) -> torch.Tensor:
-    """A kernel's zeroed [blocks, 1, LANES] int32 result (the sums add
-    into it)."""
-    return torch.zeros((tiles.shape[0], 1, LANES), dtype=torch.int32,
-                       device=tiles.device)
+# Ticket counters per (device, stream), zeroed once: every launch leaves
+# them zero, and launches on one stream run in turn.  A CUDA graph's
+# replays use those of the stream it was captured on.
+_TICKETS: dict = {}
+_MIN_TICKETS = 4096
+
+
+def _tickets(device: torch.device, stream: int, nb: int) -> torch.Tensor:
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < nb:
+        t = torch.zeros(max(nb, _MIN_TICKETS), dtype=torch.int32,
+                        device=device)
+        _TICKETS[(device, stream)] = t
+    return t
+
+
+def _outputs(tiles: torch.Tensor, rows: int, name: str, stream: int):
+    """A kernel's [blocks, 1, LANES] int32 result, its scratch and its
+    ticket counters (None for the atomic reduce, or where one block takes
+    a tile block's ``rows``)."""
+    nb = tiles.shape[0]
+    parts = -(-rows // PART_ROWS)
+    if parts > MAX_SHARES:
+        raise ValueError(f"{name}: {rows} rows a tile block; a launch takes "
+                         f"at most {MAX_SHARES * PART_ROWS}")
+    shape = (nb, 1, LANES)
+    if parts == 1:
+        return torch.empty(shape, dtype=torch.int32, device=tiles.device), \
+            None, None
+    if REDUCE[name] == "atomic":
+        return torch.zeros(shape, dtype=torch.int32, device=tiles.device), \
+            None, None
+    out = torch.empty(shape, dtype=torch.int32, device=tiles.device)
+    partial = torch.empty((nb, parts, LANES), dtype=torch.int32,
+                          device=tiles.device)
+    return out, partial, _tickets(tiles.device, stream, nb)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def _table(t: torch.Tensor, tiles: torch.Tensor, name: str) -> None:
@@ -242,11 +287,11 @@ def floor(tiles: torch.Tensor, row0: int, row1: int,
     lib, stream = _cuda(tiles, "floor")
     if tiles.dtype not in _TILE_TYPES or op not in OPS:
         raise ValueError(f"floor: no kernel for {tiles.dtype} tiles, op {op}")
-    out = out_rows(tiles)
+    out, partial, tickets = _outputs(tiles, row1 - row0, "floor", stream)
     _raise_on(lib.mkssd_probe_floor(
         tiles.data_ptr(), _TILE_TYPES[tiles.dtype], tiles.shape[0],
-        tiles.shape[1], row0, row1, OPS[op], out.data_ptr(), stream),
-        "mkssd_probe_floor")
+        tiles.shape[1], row0, row1, OPS[op], out.data_ptr(), _ptr(partial),
+        _ptr(tickets), stream), "mkssd_probe_floor")
     LAUNCHES["probe_floor"] += 1
     return out
 
@@ -259,11 +304,11 @@ def winmath(tiles: torch.Tensor, nrows: int, TL: int) -> torch.Tensor:
     lib, stream = _cuda(tiles, "winmath")
     if tiles.dtype not in (torch.int32, torch.int8):
         raise ValueError(f"winmath: no kernel for {tiles.dtype} tiles")
-    out = out_rows(tiles)
+    out, partial, tickets = _outputs(tiles, nrows, "winmath", stream)
     _raise_on(lib.mkssd_probe_winmath(
         tiles.data_ptr(), _TILE_TYPES[tiles.dtype], tiles.shape[0],
-        tiles.shape[1], nrows, TL, out.data_ptr(), stream),
-        "mkssd_probe_winmath")
+        tiles.shape[1], nrows, TL, out.data_ptr(), _ptr(partial),
+        _ptr(tickets), stream), "mkssd_probe_winmath")
     LAUNCHES["probe_winmath"] += 1
     return out
 
@@ -280,11 +325,12 @@ def gather(tiles: torch.Tensor, nrows: int, table: torch.Tensor, size: int,
             or not table.is_contiguous() or table.numel() < size:
         raise ValueError("gather: int32 tiles and a contiguous int32 or "
                          f"uint16 table of >= {size} entries on one device")
-    out = out_rows(tiles)
+    out, partial, tickets = _outputs(tiles, nrows, "gather", stream)
     _raise_on(lib.mkssd_probe_gather(
         tiles.data_ptr(), tiles.shape[0], tiles.shape[1], nrows,
         table.data_ptr(), _TILE_TYPES[table.dtype], size, mult, ng,
-        out.data_ptr(), stream), "mkssd_probe_gather")
+        out.data_ptr(), _ptr(partial), _ptr(tickets), stream),
+        "mkssd_probe_gather")
     LAUNCHES["probe_gather"] += 1
     return out
 
@@ -309,14 +355,14 @@ def search(tiles: torch.Tensor, nrows: int, k: int, subk: int, drlevel: int,
                 or sig.shape[1] != LANES:
             raise ValueError("search: lev needs 7 rows of 128, sig "
                              "[words, 128]")
-    out = out_rows(tiles)
+    out, partial, tickets = _outputs(tiles, nrows, "search", stream)
     _raise_on(lib.mkssd_probe_search(
         tiles.data_ptr(), tiles.shape[0], tiles.shape[1], nrows, k, subk,
         drlevel, None if accept is None else accept.data_ptr(),
         0 if accept is None else accept.numel(),
         None if lev is None else lev.data_ptr(),
         None if sig is None else sig.data_ptr(),
-        0 if sig is None else sig.shape[0], out.data_ptr(), stream),
-        "mkssd_probe_search")
+        0 if sig is None else sig.shape[0], out.data_ptr(), _ptr(partial),
+        _ptr(tickets), stream), "mkssd_probe_search")
     LAUNCHES["probe_search"] += 1
     return out

@@ -4,8 +4,8 @@ and operation counts, and the TPU probes' timing method on the card.
 The method (``benchmarks/probe_kernel_cost.py:55-68``): K dispatches, each
 on its own XOR-varied copy of the input, then one readback; the best of
 ``reps`` runs, per dispatch.  Here CUDA events bracket the K dispatches
-(each a wrapper call: the output's zeroing and the kernel), and the
-readback follows.  When the host enqueues slower than the card runs,
+(each a wrapper call: the kernel, after the zeroing of its output where
+``ops/probe.REDUCE`` has it add atomically), and the readback follows.  When the host enqueues slower than the card runs,
 that time is the host's; ``graph_ms`` replays the same K dispatches from
 a CUDA graph, so its time is the card's alone.
 """

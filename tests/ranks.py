@@ -6,8 +6,10 @@ metakssd_tpu_torch.cli`` processes joined by ``MKSSD_COORDINATOR`` on
 process per host with the three ``MKSSD_*`` variables.  ``{rank}`` in a
 command or its stdout path becomes the process's rank, so each can write
 its own output dirs.  A process that exits nonzero, or one that passes the
-timeout, fails the whole job: the other processes are killed and
-RuntimeError names the rank with the tail of its log.
+timeout, fails the whole job: the others get GRACE seconds to exit (their
+collectives fail on the closed connections), those still running are
+killed, and RuntimeError names every rank that failed, in rank order, with
+the tail of its log.
 
 Imported by the multi-process tests and by ``chip_smoke.py`` (which puts
 this directory on ``sys.path``).
@@ -22,6 +24,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GRACE = 10.0       # seconds the other ranks get to exit once one has failed
 
 
 def free_port() -> int:
@@ -66,11 +69,17 @@ def _run_step(i: int, argv: list, out: str | None, nprocs: int,
                 cwd=ROOT, env=e, stdout=stdout, stderr=log))
         while True:
             codes = [p.poll() for p in procs]
-            failed = [r for r, rc in enumerate(codes) if rc not in (None, 0)]
-            if failed:
+            if any(rc not in (None, 0) for rc in codes):
+                # the others' collectives now fail too; let them exit, so
+                # that every rank that failed is named, not only the first
+                # one seen (a rank may still be tearing down)
+                codes = _settle(procs, GRACE)
                 raise RuntimeError("\n".join(
-                    f"rank {r} of {nprocs} exited {codes[r]} in "
-                    f"{argv[0]}:\n{_tail(logs[r])}" for r in failed))
+                    f"rank {r} of {nprocs} exited {rc} in {argv[0]}:\n"
+                    f"{_tail(logs[r])}" if rc is not None else
+                    f"rank {r} of {nprocs} still running {argv[0]} "
+                    f"{GRACE}s after a rank failed (killed)"
+                    for r, rc in enumerate(codes) if rc != 0))
             if all(rc == 0 for rc in codes):
                 return
             if time.time() - t0 > timeout:
@@ -86,6 +95,18 @@ def _run_step(i: int, argv: list, out: str | None, nprocs: int,
                 p.wait()
         for f in files:
             f.close()
+
+
+def _settle(procs: list, grace: float) -> list:
+    """Exit codes once every process has exited or ``grace`` seconds have
+    passed (None for one still running)."""
+    end = time.time() + grace
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.0, end - time.time()))
+        except subprocess.TimeoutExpired:
+            pass
+    return [p.poll() for p in procs]
 
 
 def _tail(path: str, nbytes: int = 3000) -> str:

@@ -124,3 +124,85 @@ def test_search_configs(cuda, cfg, use_sig):
         kw = {"accept": torch.from_numpy(a_tups.view(np.int32)).to(cuda)}
     got = probe.search(tiles, 250, *cfg, **kw)
     assert torch.equal(got, probe.search_plain(tiles, 250, *cfg, **kw))
+
+
+@pytest.mark.parametrize("nb,rows", [(40, 100), (40, 1000), (600, 300),
+                                     (200, 1000)])
+def test_floor_is_one_launch(cuda, nb, rows):
+    """A floor dispatch is one launch, counted once: its result comes out
+    right on memory that held other values (nothing zeroes it), with one
+    128-row part per tile block, with eight parts in eight blocks, whose
+    tickets must be reset for the next launch (twenty dispatches in a
+    row, a winmath between, and replays of a CUDA graph), and with blocks
+    that take several parts (so many tile blocks that each gets one block,
+    or a few); where the profiler traces the card, it sees one kernel and
+    nothing else."""
+    rng = np.random.default_rng(rows)
+    t = torch.from_numpy(rng.integers(-2**31, 2**31, (nb, rows + 32, 128))
+                         .astype(np.int32)).to(cuda)
+    want = {op: probe.floor_plain(t, 0, rows, op) for op in ("sum", "xor")}
+    junk = torch.full((nb, 1, 128), 12345, dtype=torch.int32, device=cuda)
+    del junk                     # the allocator hands this block out next
+    before = sketch_cuda.LAUNCHES["probe_floor"]
+    for i in range(20):
+        op = ("sum", "xor")[i % 2]
+        assert torch.equal(probe.floor(t, 0, rows, op), want[op]), i
+        if i == 10:
+            assert torch.equal(probe.winmath(t, rows, 22),
+                               probe.winmath_plain(t, rows, 22))
+    assert sketch_cuda.LAUNCHES["probe_floor"] == before + 20
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = probe.floor(t, 0, rows, "sum")
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want["sum"])
+
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        probe.floor(t, 0, rows, "sum")
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if on_card:
+        assert len(on_card) == 1 and "floor" in on_card[0], on_card
+
+
+@pytest.mark.parametrize("reduce", ["ticket", "atomic"])
+def test_reduce_modes_match_plain(cuda, monkeypatch, reduce):
+    """Each kernel in each way of combining the blocks of a tile block,
+    at shapes of one and of several 128-row parts, on two streams that
+    run at the same time (each keeps its own ticket counters), equals its
+    plain version."""
+    monkeypatch.setattr(probe, "REDUCE", dict.fromkeys(probe.REDUCE, reduce))
+    rng = np.random.default_rng(11)
+    p = SketchParams(11, 6, 3)
+    accept = torch.from_numpy(make_shuf(p, seed=7).device_tables()[0]
+                              .view(np.int32)).to(cuda)
+    tab = torch.from_numpy(rng.integers(0, 1 << 32, 4096, dtype=np.uint64)
+                           .astype(np.uint32).view(np.int32)).to(cuda)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for nb, rows in ((5, 100), (70, 1000), (300, 520)):
+        t = torch.from_numpy(rng.integers(0, 4, (nb, rows + 22, 128))
+                             .astype(np.int32)).to(cuda)
+        calls = [("floor", (0, rows, "sum"), {}),
+                 ("floor", (3, rows, "xor"), {}),
+                 ("winmath", (rows, 22), {}),
+                 ("gather", (rows, tab, 4096, 33, 5), {}),
+                 ("search", (rows, 11, 6, 3), {"accept": accept})]
+        want = [getattr(probe, f + "_plain")(t, *a, **kw)
+                for f, a, kw in calls]
+        torch.cuda.synchronize()
+        got = [[], []]
+        for _ in range(3):
+            for s, out in zip(streams, got):
+                with torch.cuda.stream(s):
+                    out.extend(getattr(probe, f)(t, *a, **kw)
+                               for f, a, kw in calls)
+        torch.cuda.synchronize()
+        for out in got:
+            for i, g in enumerate(out):
+                assert torch.equal(g, want[i % len(calls)]), \
+                    (nb, rows, i)

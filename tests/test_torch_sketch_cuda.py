@@ -256,3 +256,19 @@ def test_byread_positions_match_plain(cuda, tmp_path, chunk, capacity):
         if name.startswith("combco") or name == "cofiles.stat":
             assert (tmp_path / "cuda" / name).read_bytes() == \
                 (tmp_path / "cpu" / name).read_bytes(), name
+
+
+def test_kernel_chain_on_the_card(cuda):
+    """``kernel_bench``: a pass's dispatch sums on the card equal those of
+    K1's plain version, and ``kernel_chain_mwin`` launches K1 k_reps times
+    a pass (an untimed one and ``reps`` timed ones), counted."""
+    from metakssd_tpu_torch.ops import kernel_bench
+    nwin, k_reps = 1 << 20, 4
+    np.testing.assert_array_equal(
+        kernel_bench.chain_sums(nwin=nwin, k_reps=k_reps, device=cuda),
+        kernel_bench.chain_sums(nwin=nwin, k_reps=k_reps, device="cpu"))
+    before = sketch_cuda.LAUNCHES["sketch_compact"]
+    rate = kernel_bench.kernel_chain_mwin(nwin=nwin, k_reps=k_reps, reps=2,
+                                          device=cuda)
+    assert rate > 0
+    assert sketch_cuda.LAUNCHES["sketch_compact"] == before + 3 * k_reps

@@ -1,5 +1,6 @@
 """The port stands alone: ``metakssd_tpu_torch`` and ``chip_smoke.py``
-import neither jax nor the JAX package ``metakssd_tpu``.
+import neither jax nor the JAX package ``metakssd_tpu``, nor the
+``tests`` package.
 
 An AST scan of every source finds no such import, and a fresh interpreter
 that imports every port module and then runs the CLI verbs on the CPU
@@ -20,7 +21,9 @@ SOURCES = sorted(
     os.path.relpath(p, REPO) for p in glob.glob(
         os.path.join(REPO, "metakssd_tpu_torch", "**", "*.py"),
         recursive=True)) + ["chip_smoke.py"]
-FORBIDDEN = ("jax", "metakssd_tpu")
+# the test helpers are not part of the port either (chip_smoke.py puts
+# tests/ on its path for ranks.py alone)
+FORBIDDEN = ("jax", "metakssd_tpu", "tests")
 
 
 def _imported(tree: ast.AST):
