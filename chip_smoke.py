@@ -44,6 +44,18 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    index build's likewise (CUDA events after a warm-up, and from a CUDA
    graph; the largest key read on the host before the timed calls, as a
    ``StaticHaystack`` has it, and once with that read inside them);
+3b. pipeline: ``sketch_windows``'s pipelined dispatch on an L3K11
+   stream of 6 chunks of 2M windows whose chunk 3, queued behind the
+   clean chunk 2, holds a poly-A block past its capacity: with
+   ``devices`` None, ``[cuda:0]`` and ``[cuda:0, cuda:0]``, twice each,
+   the (drtuple, position) pairs equal the ``--device cpu`` run's, K1
+   runs once a chunk and K2 once (the overflowing chunk), no chunk's
+   count is read before the next chunk's K1 is queued, at most DEPTH
+   chunks a device are queued before the oldest is read, and a call
+   allocates two pinned upload buffers a card and one count array, none
+   a chunk (``probes/chunk_split.checked_run``).  Then the per-chunk
+   split of 4 chunks of 64M random windows, the serial order the loop
+   had before and the pipelined one, in turns (``chunk_split``);
 4. slice: 1024 synthetic 1 Mbp genomes -> MarkerDB with the port's
    ``dist`` (L3K11), a 4M x 150 bp fastq sampled from 32 of them with
    skewed abundance, 0.1% N and a block of poly-A reads, then the port's
@@ -531,6 +543,56 @@ def phase_kernels(work: str, seed: int) -> dict:
     _filter_cases(work, seed, res)
     torch.cuda.empty_cache()
     return res
+
+
+PIPE_CHUNK = 1 << 21              # the pipeline phase's chunks (windows) ...
+PIPE_CHUNKS = 6                   # ... and their count; chunk 3 overflows
+SPLIT_CHUNKS = 4                  # 64M-window chunks of the per-chunk split
+
+
+def phase_pipeline(work: str, seed: int) -> None:
+    """The chunk loop's pipelined dispatch against its CPU run and its
+    contract, then its per-chunk split, printed."""
+    import numpy as np
+    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.probes import chunk_split
+    from metakssd_tpu_torch.state import accept_tables
+
+    shuf = write_zero_accepted_shuf(os.path.join(work, "pipeline.shuf"),
+                                    L3K11, seed)
+    p = shuf.params
+    rng = np.random.default_rng(seed + 3)
+    codes = rng.integers(0, 4, size=PIPE_CHUNKS * PIPE_CHUNK - 1000,
+                         dtype=np.uint8)
+    codes[rng.integers(0, codes.size, codes.size // 1000)] = 4
+    codes[3 * PIPE_CHUNK + 1000:3 * PIPE_CHUNK + (1 << 20)] = 0
+    t = time.time()
+    ref = sketch_cuda.sketch_windows(codes, p, accept_tables(shuf, "cpu"),
+                                     want_pos=True, chunk_windows=PIPE_CHUNK)
+    print(f"  --device cpu: {ref[0].size} kept windows in "
+          f"{time.time() - t:.1f} s", flush=True)
+    tabs = accept_tables(shuf, "cuda")
+    for devices in (None, ["cuda:0"], ["cuda:0", "cuda:0"]):
+        for _ in range(2):
+            try:
+                chunk_split.checked_run(codes, p, tabs, PIPE_CHUNK, None,
+                                        devices, ref, reruns=1)
+            except AssertionError as e:
+                check(False, f"pipelined chunk loop: {e}")
+        print(f"  devices={devices}: pairs == cpu, {PIPE_CHUNKS} K1 + 1 K2, "
+              "order and pinned buffers ok", flush=True)
+    dr, _ = sketch_cuda.sketch_windows(codes, p, tabs,
+                                       chunk_windows=PIPE_CHUNK)
+    check(np.array_equal(np.sort(dr), np.sort(ref[0])),
+          "pipelined chunk loop without positions")
+    big = rng.integers(0, 4, size=SPLIT_CHUNKS * sketch_cuda.CHUNK_WINDOWS
+                       + p.kmer_len - 1, dtype=np.uint8)
+    for order in ("serial", "pipelined", "pipelined", "serial"):
+        split = chunk_split.serial_split if order == "serial" \
+            else chunk_split.pipelined_split
+        print("  split " + json.dumps(split(big, p, tabs,
+                                            sketch_cuda.CHUNK_WINDOWS)),
+              flush=True)
 
 
 def _member_cases(seed: int):
@@ -1874,6 +1936,10 @@ def main(argv=None) -> int:
         kres = phase_kernels(work, args.seed)
         mres = phase_member(args.seed)
         _phase("kernels", t0)
+
+        t0 = time.time()
+        phase_pipeline(work, args.seed)
+        _phase("pipeline", t0)
 
         _k12_lines(kres)
         t0 = time.time()

@@ -9,8 +9,10 @@ between two launches but the next launch) and drains the sums with one
 readback; it reports the best of ``reps`` such passes in millions of
 windows a second.  Each launch goes through
 ``ops/sketch_cuda.window_compact``, as the chunk loop's do, but nothing in
-the timed region waits for the card except the one readback (the chunk
-loop, ``sketch_windows``, reads each chunk's count back before the next).
+the timed region waits for the card except the one readback, and no
+chunk is copied to the card inside it (the chunk loop, ``sketch_windows``,
+uploads each chunk from pinned memory on a copy stream and reads each
+chunk's count back once two more chunks a card are queued).
 
 The input is the JAX module's: the L3K11 shuffle of seed 1234 by default,
 and ``nwin + TL - 1`` 2-bit codes from ``default_rng(0)``.  Dispatch ``i``

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from metakssd_tpu_torch.device import resolve_device
 from metakssd_tpu_torch.ops import golden, sketch_cuda
 from metakssd_tpu_torch.ops.golden import sets_from_drtuples
 from metakssd_tpu_torch.state import AcceptTables, accept_tables
@@ -29,18 +30,24 @@ def on_device_path(shuf) -> bool:
             and shuf.accept_table()[0].size <= MAX_ACCEPT)
 
 
-def _windows(codes, shuf, device, tables, want_pos, **kw):
+def _windows(codes, shuf, device, tables, want_pos, devices=None, **kw):
+    device = resolve_device(device)
     tables = tables if tables is not None else accept_tables(shuf, device)
+    if devices is None and device.index is not None:
+        devices = [device]          # a pinned card takes every chunk
     return sketch_cuda.sketch_windows(np.asarray(codes, np.uint8),
                                       shuf.params, tables,
-                                      want_pos=want_pos, **kw)
+                                      want_pos=want_pos, devices=devices,
+                                      **kw)
 
 
 def sketch_codes(codes: np.ndarray, shuf, device,
                  tables: AcceptTables | None = None, **kw) -> np.ndarray:
     """All accepted drtuples of a code stream, sorted uint64 with
     duplicates kept (``sketch_xla.sketch_codes``).  ``kw`` reaches the
-    chunk loop (``chunk_windows``, ``capacity``)."""
+    chunk loop (``chunk_windows``, ``capacity``, ``devices``); a device
+    with an index (``cuda:N``) keeps every chunk, plain ``cuda`` lets
+    them spread over every visible card."""
     if not on_device_path(shuf):
         return np.sort(golden.window_drtuples(codes, shuf))
     dr, _ = _windows(codes, shuf, device, tables, False, **kw)

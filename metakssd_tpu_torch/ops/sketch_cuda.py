@@ -29,6 +29,11 @@ Tensor contract (both versions):
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
+import warnings
+
 import numpy as np
 import torch
 
@@ -45,7 +50,14 @@ LAUNCHES = {"sketch_compact": 0, "sketch_full": 0, "member": 0,
             "probe_gather": 0, "probe_search": 0}
 
 CHUNK_WINDOWS = 1 << 26        # windows per device dispatch (64M)
+DEPTH = 2                      # chunks queued per device before resolving
 DROPPED = 0xFFFFFFFF
+
+# Pinned host allocations of the chunk loop: ``upload``, a card's two code
+# buffers in a call (each made when the card's first or second chunk needs
+# it, then reused), and ``count``, the count slots of a call.  No chunk
+# allocates one.  chip_smoke.py and the tests hold the loop to this.
+PINNED_ALLOCS = {"upload": 0, "count": 0}
 
 
 def reset_launches() -> None:
@@ -266,52 +278,205 @@ def default_capacity(nwin: int, tables: AcceptTables) -> int:
     return min(nwin, 2 * expected + 65536)
 
 
-def _upload(seg: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Copy a (possibly read-only, parser-owned) code slice into a tensor
-    on ``device``.  The host copy is taken before this returns, so the
-    caller may hand the source buffer back to the parser."""
-    host = torch.empty(seg.size, dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    host.numpy()[:] = seg
-    if device.type == "cpu":
-        return host
-    return host.to(device, non_blocking=True)
+def _chunk_devices(devices, home: torch.device,
+                   nchunks: int) -> list[torch.device]:
+    """The devices that chunks are dealt to, in turn
+    (``sketch_pallas.py:696-716``): ``devices`` as given; the tables' own
+    device for ``[]``; for None every visible card when there are several
+    and the stream spans several chunks, else the tables' device.  One
+    kind, CUDA or CPU, or it raises."""
+    if devices is None and home.type == "cuda" and nchunks > 1 \
+            and torch.cuda.device_count() > 1:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in devices] if devices else [home]
+    kinds = {d.type for d in devs}
+    if len(kinds) > 1:
+        raise ValueError(f"devices mix {sorted(kinds)}: the chunk loop "
+                         "deals chunks to devices of one kind")
+    if not kinds <= {"cuda", "cpu"}:
+        raise ValueError(f"no sketch kernel for device {devs[0]}")
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devs]
+
+
+class _Lane:
+    """One device's side of a ``sketch_windows`` call: its copy of the
+    accept tables and, on a card, a copy stream, a readback stream, two
+    pinned upload buffers (the lane's j-th chunk goes through buffer
+    j % 2) and the event of each buffer's last H2D."""
+
+    def __init__(self, dev: torch.device, tables: AcceptTables,
+                 nbytes: int):
+        self.dev = dev
+        self.tables = tables if tables.accept.device == dev else \
+            dataclasses.replace(tables, accept=tables.accept.to(dev),
+                                pfilter=tables.pfilter.to(dev),
+                                filter=tables.filter.to(dev))
+        self.nbytes = nbytes
+        self.bufs: list[torch.Tensor] = []
+        self.h2d: list = [None, None]
+        self.n = 0
+        self.copy = self.readback = None
+        if dev.type == "cuda":
+            self.copy = torch.cuda.Stream(dev)
+            self.readback = torch.cuda.Stream(dev)
+
+    def on(self):
+        """Makes the lane's card the current CUDA device: the kernels
+        launch on the current device's stream."""
+        return (torch.cuda.device(self.dev) if self.dev.type == "cuda"
+                else contextlib.nullcontext())
+
+    def stage(self, seg: np.ndarray) -> tuple[torch.Tensor, int]:
+        """Host copy of a (possibly read-only, parser-owned) code slice,
+        taken before this returns, and the buffer it went to: on a card
+        the lane's next pinned buffer, once the H2D that last read it is
+        done."""
+        if self.dev.type == "cpu":
+            host, b = torch.empty(seg.size, dtype=torch.uint8), 0
+        else:
+            b = self.n % 2
+            self.n += 1
+            if b == len(self.bufs):
+                self.bufs.append(torch.empty(
+                    self.nbytes, dtype=torch.uint8, pin_memory=True))
+                PINNED_ALLOCS["upload"] += 1
+            else:
+                self.h2d[b].synchronize()
+            host = self.bufs[b][:seg.size]
+        with warnings.catch_warnings():
+            # a parser's read-only buffer: torch only reads it
+            warnings.simplefilter("ignore", UserWarning)
+            src = torch.from_numpy(seg)
+        host.copy_(src)     # on the host's threads, unlike a numpy copy
+        return host, b
+
+    def upload(self, host: torch.Tensor, b: int) -> torch.Tensor:
+        """A staged slice on the lane's device.  On a card the H2D runs
+        on the copy stream and the current stream waits for it before
+        anything it queues next (K1)."""
+        if self.dev.type == "cpu":
+            return host
+        with torch.cuda.stream(self.copy):
+            c = torch.empty(host.numel(), dtype=torch.uint8, device=self.dev)
+            c.copy_(host, non_blocking=True)
+        ev = self.h2d[b] = torch.cuda.Event()
+        ev.record(self.copy)
+        compute = torch.cuda.current_stream(self.dev)
+        compute.wait_event(ev)
+        # the chunk stays on the card for a K2 rerun; its memory goes back
+        # to the allocator only after the current stream's work on it
+        c.record_stream(compute)
+        return c
+
+
+class _Chunk:
+    """A queued chunk: its codes on the lane's device (kept for a K2
+    rerun), K1's outputs and, on a card, K1's count on its way into a
+    pinned slot and the event that says it has arrived."""
+
+    def __init__(self, lane: _Lane, start: int, seg: np.ndarray, p,
+                 cap: int, want_pos: bool, slot: torch.Tensor | None):
+        self.lane, self.start, self.cap = lane, start, cap
+        self.codes = lane.upload(*lane.stage(seg))
+        self.dr, self.pos, count = window_compact(
+            self.codes, lane.tables, p, cap, want_pos)
+        self.count, self.done = count, None
+        if lane.dev.type == "cuda":
+            slot.copy_(count, non_blocking=True)
+            self.count = slot
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(lane.dev))
+
+    def kept(self) -> int:
+        """K1's count; on a card it waits for this chunk's event alone,
+        not for the chunks queued after it on the same stream."""
+        if self.done is not None:
+            self.done.synchronize()
+        return int(self.count[0])
+
+    def result(self, p, want_pos: bool):
+        """(drtuples uint32, stream positions int64 or None) of the
+        chunk's kept windows: K1's, or K2's where K1 overflowed."""
+        lane = self.lane
+        n = self.kept()
+        if n > self.cap:
+            dr, keep = window_full(self.codes, lane.tables, p)
+            pos = torch.nonzero(keep).flatten()
+            dr = dr[pos]
+            # K2's results are queued behind the current stream's work
+            stream = None
+        else:
+            dr, pos = self.dr[:n], self.pos[:n] if want_pos else None
+            # K1's are complete (its event): read them back past the
+            # chunks queued after it
+            stream = lane.readback
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            dr = dr.cpu().numpy().view(np.uint32)
+            if want_pos:
+                pos = pos.cpu().numpy().astype(np.int64) + self.start
+        return dr, pos if want_pos else None
 
 
 def sketch_windows(codes: np.ndarray, p, tables: AcceptTables,
                    want_pos: bool = False,
                    chunk_windows: int = CHUNK_WINDOWS,
-                   capacity: int | None = None):
+                   capacity: int | None = None, devices=None):
     """All kept windows of a code stream -> (drtuples uint32, window
-    positions int64 or None), unsorted, duplicates kept.
+    positions int64 or None), unsorted, duplicates kept: the port of
+    ``sketch_pallas.sketch_codes_pallas``'s chunk loop.
 
     The stream is cut into chunks of ``chunk_windows`` windows that
     overlap by TL-1 bases, so every window is evaluated exactly once.
-    Each chunk runs K1; a chunk whose count exceeds its capacity reruns
-    through K2.  Chunk-relative int32 positions become int64 stream
-    positions on the host (a batched genome stream passes 2^31 bases).
-    Every device result is on the host before the next chunk's copy."""
+    Chunk i goes to ``devices[i % len(devices)]`` (see
+    ``_chunk_devices``; the tables are staged once per device) and runs
+    K1; a chunk whose count exceeds its capacity reruns through K2 on
+    its own device from its codes, still there.  Chunks are queued
+    without a host sync, DEPTH per device: on a card, chunk i's host copy
+    into a pinned buffer and its H2D (a copy stream) overlap the K1 of
+    the chunks before it, and chunk i is resolved (its count read, its
+    kept windows read back) in FIFO order once more than DEPTH x
+    len(devices) chunks are queued, so never before chunk i+1's H2D and
+    K1 are.  On the CPU the same loop runs K1/K2's plain versions
+    synchronously.  Parts are joined in chunk order; chunk-relative int32
+    positions become int64 stream positions on the host (a batched genome
+    stream passes 2^31 bases)."""
     TL = p.kmer_len
-    device = tables.accept.device
     nwin_total = codes.size - TL + 1
+    starts = range(0, max(nwin_total, 0), chunk_windows)
+    devs = _chunk_devices(devices, tables.accept.device, len(starts))
+    nbytes = min(chunk_windows + TL - 1, codes.size)
+    lanes = {d: _Lane(d, tables, nbytes) for d in dict.fromkeys(devs)}
+    slots = None
+    if devs[0].type == "cuda" and len(starts):
+        slots = torch.empty(len(starts), dtype=torch.int64, pin_memory=True)
+        PINNED_ALLOCS["count"] += 1
+    pending: collections.deque[_Chunk] = collections.deque()
     drs: list[np.ndarray] = []
     poss: list[np.ndarray] = []
-    for start in range(0, max(nwin_total, 0), chunk_windows):
-        nw = min(chunk_windows, nwin_total - start)
-        c = _upload(codes[start:start + nw + TL - 1], device)
-        cap = default_capacity(nw, tables) if capacity is None else capacity
-        dr, pos, count = window_compact(c, tables, p, cap, want_pos)
-        n = int(count.item())
-        if n > cap:
-            dr, keep = window_full(c, tables, p)
-            pos = torch.nonzero(keep).flatten()
-            dr = dr[pos]
-        else:
-            dr = dr[:n]
-            pos = pos[:n] if want_pos else None
-        drs.append(dr.cpu().numpy().view(np.uint32))
+
+    def resolve() -> None:
+        chunk = pending.popleft()
+        with chunk.lane.on():
+            dr, pos = chunk.result(p, want_pos)
+        drs.append(dr)
         if want_pos:
-            poss.append(pos.cpu().numpy().astype(np.int64) + start)
+            poss.append(pos)
+
+    for i, start in enumerate(starts):
+        nw = min(chunk_windows, nwin_total - start)
+        cap = default_capacity(nw, tables) if capacity is None else capacity
+        lane = lanes[devs[i % len(devs)]]
+        with lane.on():
+            pending.append(_Chunk(
+                lane, start, codes[start:start + nw + TL - 1], p, cap,
+                want_pos, None if slots is None else slots[i:i + 1]))
+        while len(pending) > DEPTH * len(devs):
+            resolve()
+    while pending:
+        resolve()
     dr = np.concatenate(drs) if drs else np.zeros(0, np.uint32)
     if not want_pos:
         return dr, None

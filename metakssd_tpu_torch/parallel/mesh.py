@@ -306,8 +306,9 @@ def _shard_windows(seg: np.ndarray, shuf, dev, tables: dict, **kw):
         return np.asarray(window_drtuples(seg, shuf), np.uint64)
     if dev not in tables:
         tables[dev] = accept_tables(shuf, dev)
-    return sketch_cuda.sketch_windows(seg, shuf.params, tables[dev],
-                                      **kw)[0].astype(np.uint64)
+    dr, _ = sketch_cuda.sketch_windows(seg, shuf.params, tables[dev],
+                                       devices=[dev], **kw)
+    return dr.astype(np.uint64)
 
 
 def sharded_sketch(codes: np.ndarray, shuf, mesh, tables=None,
@@ -502,8 +503,8 @@ def make_sharded_profile_step(mesh, *, k: int, subk: int, drlevel: int,
             if dev not in tables:
                 tables[dev] = make_accept_tables(accept_tups, pfilters, subk,
                                                  dev)
-            parts.append(sketch_cuda.sketch_windows(codes[d], p,
-                                                    tables[dev])[0])
+            parts.append(sketch_cuda.sketch_windows(
+                codes[d], p, tables[dev], devices=[dev])[0])
         keys = np.concatenate(gather_arrays(np.concatenate(parts)))
         uniq = device_union(keys, mesh)
         # 0xFFFFFFFF is the JAX step's pad: it never matches there

@@ -272,3 +272,36 @@ def test_kernel_chain_on_the_card(cuda):
                                           device=cuda)
     assert rate > 0
     assert sketch_cuda.LAUNCHES["sketch_compact"] == before + 3 * k_reps
+
+
+@pytest.fixture(scope="module")
+def pipeline_case():
+    """An L3K11 stream of 6 chunks of 2^20 windows whose chunk 3 holds a
+    poly-A block past its capacity, queued behind the clean chunk 2, and
+    the chunk loop's (drtuple, position) pairs on the CPU."""
+    p = SketchParams(11, 6, 3)
+    shuf = zero_accepted(p, seed=21)
+    chunk, cap = 1 << 20, 4096
+    codes = random_codes(seed=22, n=6 * chunk - 500, n_invalid=300)
+    codes[3 * chunk + 100:3 * chunk + 10_100] = 0
+    ref = sketch_cuda.sketch_windows(codes, p, accept_tables(shuf, "cpu"),
+                                     want_pos=True, chunk_windows=chunk,
+                                     capacity=cap)
+    return p, shuf, codes, chunk, cap, ref
+
+
+@pytest.mark.parametrize("devices", [None, ["cuda:0"], ["cuda:0", "cuda:0"]])
+def test_pipelined_loop_matches_cpu(cuda, pipeline_case, devices):
+    """The pipelined chunk loop on the card: pairs equal the CPU's, K1
+    once a chunk and K2 for the overflowing chunk alone, no chunk read
+    before the next is queued, at most DEPTH chunks a device queued, and
+    no pinned buffer past the first two a card."""
+    from metakssd_tpu_torch.probes.chunk_split import checked_run
+    p, shuf, codes, chunk, cap, ref = pipeline_case
+    tabs = accept_tables(shuf, cuda)
+    for _ in range(2):
+        checked_run(codes, p, tabs, chunk, cap, devices, ref, reruns=1)
+    # a pinned card (--device cuda:0) takes every chunk
+    dr = sketch.sketch_codes(codes, shuf, "cuda:0", tabs,
+                             chunk_windows=chunk, capacity=cap)
+    np.testing.assert_array_equal(dr, np.sort(ref[0]).astype(np.uint64))
