@@ -106,14 +106,33 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    distance.out byte-identical to phase 5's.  K3 checked against its
    plain version and timed (from a CUDA graph, beside
    ``torch.searchsorted``, with its bound) at one shard of each of the two
-   ``--shard-db 4`` calls.  Then RANKS = 2 processes on the one card,
-   joined by ``MKSSD_COORDINATOR=127.0.0.1:<free port>`` over gloo
+   ``--shard-db 4`` calls.  Then RANKS = 2 processes on the first
+   visible card (``CUDA_VISIBLE_DEVICES``), joined by
+   ``MKSSD_COORDINATOR=127.0.0.1:<free port>``, so over gloo
    (``tests/ranks.run_ranks``: ``python -m metakssd_tpu_torch.cli`` once
-   per verb and rank), running ``dist --mesh 4``, ``dist -r --shard-db
-   4``, ``composite --shard-db 4``, ``set -u`` and ``set -g``, each rank
-   into its own dirs: every file of both ranks byte-identical to this
-   process's runs; a rank that fails, or one that runs a verb past
-   RANKS_TIMEOUT, fails the phase;
+   per verb and rank, ``MKSSD_LOG=json``), running ``dist --mesh 4``,
+   ``dist -r --shard-db 4``, ``composite --shard-db 4``, ``set -u`` and
+   ``set -g``, each rank into its own dirs: every file of both ranks
+   byte-identical to this process's runs; a rank that fails, or one that
+   runs a verb past RANKS_TIMEOUT, fails the phase;
+5c. collectives: prints ``torch.distributed.is_nccl_available()`` and
+   NCCL's version.  (a) The same five verbs, each in a job of one rank
+   on the card (``MKSSD_NPROCS=1``), so its collectives run over an NCCL
+   group of one: every file byte-identical to phase 5b's one-process
+   runs, each TIMER report naming ``nccl (1 rank, 1 card)``, NCCL calls
+   above 0 for ``dist --mesh 4``, ``dist -r --shard-db 4`` and ``set
+   -u``; each verb's seconds printed beside phase 5b's one-process time,
+   with the calls and bytes of its collectives.  (b) ``python -m
+   metakssd_tpu_torch.probes.collectives_check`` in a one-rank NCCL
+   group: ``gather_arrays`` and ``all_sum`` of CUDA tensors of 0, 1 and
+   2^24 + 3 elements (uint8, int32, uint32, int64, uint64) give the input
+   back, equal to the numpy forms over gloo.  (c) Phase 5b's reports name
+   ``gloo (2 ranks share cuda:0)``.  (d) With two or more visible cards:
+   two ranks of one card each run the five verbs over NCCL, byte-identical;
+   ``sketch_windows(devices=None)`` deals 2 x cards chunks of 1M windows
+   over every card, its pairs equal to the CPU run's; ``make_mesh`` deals
+   shards round-robin over the cards.  With one card it prints ``several
+   cards: not run (1 visible)``;
 6. set: a synthetic L3K11 sketch dir at a MarkerDB build's scale (65,536
    genomes in 16,384 taxa of 4, about 1,024 ids each, 67M ids in all,
    and 64 genomes of taxid 0) goes through ``set -g`` -> ``-q`` -> ``-i``,
@@ -1280,7 +1299,7 @@ def phase_mesh(work: str, sres: dict, qres: dict) -> dict:
           f"K3 and its index must launch once per shard and component "
           f"({MESH} x {len(comps)}): {got}")
     tsv = os.path.join(work, "mesh_composite.tsv")
-    secs["composite -q --shard-db 4"], launches["composite --shard-db 4"] = \
+    secs["composite --shard-db 4"], launches["composite --shard-db 4"] = \
         _mesh_launches("composite -q --shard-db 4", [
             "composite", "-r", db, "-q", os.path.join(prof, "qry.co"),
             "--shard-db", n, "--device", "cuda"], tsv)
@@ -1318,11 +1337,15 @@ def phase_mesh(work: str, sres: dict, qres: dict) -> dict:
              for c in range(sref.stat.comp_num) if sref.ids[c].size
              for q in range(sqry.stat.infile_num)]
     pairs = sum(1 for x in sizes if x)
+    # the query's haystack is staged once per card that holds a shard
+    cards = len({i % torch.cuda.device_count() for i in range(MESH)})
     got = launches["dist -r --shard-db 4"]
     check(got["member"] == MESH * pairs
-          and got["member_index"] == sum(1 for x in sizes if x >= 16),
+          and got["member_index"] == cards * sum(1 for x in sizes
+                                                 if x >= 16),
           f"dist -r --shard-db 4: K3 once per shard and (query, component)"
-          f" ({MESH} x {pairs}), its index once per pair: {got}")
+          f" ({MESH} x {pairs}), its index once per pair and card "
+          f"({cards}): {got}")
     c = next(c for c in range(sref.stat.comp_num) if sref.ids[c].size)
     post = np.asarray(sref.ids[c], np.uint32)
     uq, mult = np.unique(sqry.genome_ids(c, 0), return_counts=True)
@@ -1344,35 +1367,25 @@ def phase_mesh(work: str, sres: dict, qres: dict) -> dict:
         f.writelines(f"{1 + i // CHAIN_TAXON}\ttaxon{i // CHAIN_TAXON}\n"
                      for i in range(len(names)))
     serial = {k: os.path.join(work, f"mesh_serial_{k}") for k in ("u", "g")}
-    run_cli("set -u (one process)", ["set", "-u", "-o", serial["u"],
-                                     "--device", "cuda", db])
-    run_cli("set -g (one process)", ["set", "-g", taxf, "-o", serial["g"],
-                                     "--device", "cuda", db])
+    secs["set -u"] = run_cli("set -u (one process)", [
+        "set", "-u", "-o", serial["u"], "--device", "cuda", db])
+    secs["set -g"] = run_cli("set -g (one process)", [
+        "set", "-g", taxf, "-o", serial["g"], "--device", "cuda", db])
+    job = {"shuf": shufp, "db": db, "genomes": sres["genomes"],
+           "refco": qres["refco"], "qryco": qres["qryco"],
+           "dist_out": qres["dist_out"], "sample": os.path.join(prof,
+                                                              "qry.co"),
+           "taxf": taxf, "serial": serial, "composite": text}
     rk = os.path.join(work, "ranks")
-    os.makedirs(rk)
-
-    def j(name):
-        return os.path.join(rk, name)
-    cu = ["--device", "cuda"]
-    steps = [
-        (["dist", "-L", shufp, "--mesh", n, "-o", j("co_p{rank}"),
-          sres["genomes"], *cu], None),
-        (["dist", "-r", qres["refco"], "--shard-db", n, "-o",
-          j("dist_p{rank}"), qres["qryco"], *cu], None),
-        (["composite", "-r", db, "-q", os.path.join(prof, "qry.co"),
-          "--shard-db", n, *cu], j("comp_p{rank}.tsv")),
-        (["set", "-u", "-o", j("set_p{rank}"), db, *cu], None),
-        (["set", "-g", taxf, "-o", j("grp_p{rank}"), db, *cu], None)]
-    secs[f"{RANKS} processes"] = run_ranks(steps, RANKS, j("logs"),
-                                           RANKS_TIMEOUT)
+    # the ranks share the first visible card, whatever the machine holds,
+    # so this leg runs the collectives over gloo (phase 5c runs NCCL)
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    secs[f"{RANKS} processes"] = run_ranks(
+        _rank_steps(job, rk), RANKS, os.path.join(rk, "logs"),
+        RANKS_TIMEOUT, env=dict(os.environ, MKSSD_LOG="json",
+                                CUDA_VISIBLE_DEVICES=first))
     for r in range(RANKS):
-        _same_dirs(j(f"co_p{r}"), db, f"rank {r} dist --mesh 4")
-        _same_files(j(f"dist_p{r}"), qres["dist_out"], ["distance.out"],
-                    f"rank {r} dist -r --shard-db 4")
-        with open(j(f"comp_p{r}.tsv"), "rb") as a:
-            check(a.read() == text, f"rank {r} composite --shard-db 4")
-        _same_dirs(j(f"set_p{r}"), serial["u"], f"rank {r} set -u")
-        _same_dirs(j(f"grp_p{r}"), serial["g"], f"rank {r} set -g")
+        _check_rank_files(job, rk, r)
     print(f"  {RANKS} processes on one card over gloo: dist --mesh 4, "
           "dist -r --shard-db 4, composite --shard-db 4, set -u and set -g "
           f"in {secs[f'{RANKS} processes']:.3f} s; every file of every rank "
@@ -1381,7 +1394,180 @@ def phase_mesh(work: str, sres: dict, qres: dict) -> dict:
                                            for k, v in secs.items()}),
           flush=True)
     return {"launches": launches, "k3": k3, "err": err, "seconds": secs,
-            "peak_mib": peak / 2**20}
+            "peak_mib": peak / 2**20, "job": job,
+            "ranks_logs": os.path.join(rk, "logs")}
+
+
+RANK_VERBS = ("dist --mesh 4", "dist -r --shard-db 4",
+              "composite --shard-db 4", "set -u", "set -g")
+
+
+def _rank_steps(job: dict, rk: str) -> list:
+    """``run_ranks`` steps of the RANK_VERBS on phase 4's and 5's data,
+    each rank writing into ``rk``."""
+    os.makedirs(rk, exist_ok=True)
+
+    def j(name):
+        return os.path.join(rk, name)
+    n = str(MESH)
+    cu = ["--device", "cuda"]
+    return [
+        (["dist", "-L", job["shuf"], "--mesh", n, "-o", j("co_p{rank}"),
+          job["genomes"], *cu], None),
+        (["dist", "-r", job["refco"], "--shard-db", n, "-o",
+          j("dist_p{rank}"), job["qryco"], *cu], None),
+        (["composite", "-r", job["db"], "-q", job["sample"],
+          "--shard-db", n, *cu], j("comp_p{rank}.tsv")),
+        (["set", "-u", "-o", j("set_p{rank}"), job["db"], *cu], None),
+        (["set", "-g", job["taxf"], "-o", j("grp_p{rank}"), job["db"],
+          *cu], None)]
+
+
+def _check_rank_files(job: dict, rk: str, r: int) -> None:
+    """Every file rank ``r`` wrote into ``rk`` byte-identical to the
+    one-process run's."""
+    def j(name):
+        return os.path.join(rk, name)
+    _same_dirs(j(f"co_p{r}"), job["db"], f"rank {r} dist --mesh 4")
+    _same_files(j(f"dist_p{r}"), job["dist_out"], ["distance.out"],
+                f"rank {r} dist -r --shard-db 4")
+    with open(j(f"comp_p{r}.tsv"), "rb") as a:
+        check(a.read() == job["composite"],
+              f"rank {r} composite --shard-db 4")
+    _same_dirs(j(f"set_p{r}"), job["serial"]["u"], f"rank {r} set -u")
+    _same_dirs(j(f"grp_p{r}"), job["serial"]["g"], f"rank {r} set -g")
+
+
+def _rank_report(logdir: str, step: int, r: int) -> dict:
+    """Rank ``r``'s TIMER report of step ``step``; its ``meta`` must name
+    the collectives' backend."""
+    from metakssd_tpu_torch.probes.collectives_check import read_report
+    rep = read_report(os.path.join(logdir, f"step{step}_rank{r}.log"))
+    check("collectives" in rep.get("meta", {}), f"no collectives in the "
+          f"TIMER report of step {step}, rank {r} ({logdir})")
+    return rep
+
+
+PIPE_CARDS_CHUNK = 1 << 20        # phase 5c (d): chunks of the dealt stream
+
+
+def phase_collectives(work: str, seed: int, meshres: dict) -> dict:
+    """(a) The RANK_VERBS in a one-rank NCCL job on the card, each verb its
+    own job: files byte-identical to the one-process run's, the TIMER
+    report naming nccl, NCCL calls above 0 where the verb merges across
+    shards.  (b) The collectives on CUDA tensors in a one-rank NCCL group
+    (``probes/collectives_check``).  (c) Phase 5b's two processes, which
+    share a card: their reports name gloo.  (d) With several cards: two
+    ranks, one card each, over NCCL; ``sketch_windows(devices=None)``
+    dealing chunks over the cards; ``make_mesh`` dealing shards."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ranks import free_port, run_ranks
+    job, secs = meshres["job"], meshres["seconds"]
+    print(f"  NCCL available {tdist.is_nccl_available()}, version "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
+    env = dict(os.environ, MKSSD_LOG="json")
+
+    # (a) one rank on the card, over NCCL
+    rk = os.path.join(work, "ranks_nccl")
+    out = {}
+    for i, (verb, step) in enumerate(zip(RANK_VERBS, _rank_steps(job, rk))):
+        logs = os.path.join(rk, f"logs{i}")
+        dt = run_ranks([step], 1, logs, RANKS_TIMEOUT, env=env)
+        rep = _rank_report(logs, 0, 0)
+        meta, counts = rep["meta"], rep["meta"].get("collective_counts", {})
+        check(meta["collectives"] == "nccl (1 rank, 1 card)",
+              f"one-rank {verb}: collectives {meta['collectives']}")
+        if verb in ("dist --mesh 4", "dist -r --shard-db 4", "set -u"):
+            check(counts.get("nccl_calls", 0) > 0,
+                  f"one-rank {verb}: no NCCL call ({counts})")
+        staged = sum(rep["stages"].values())
+        print(f"  one rank, NCCL: {verb:24s} {dt:8.3f} s, its stages "
+              f"{staged:.3f} s (one process in 5b {secs[verb]:.3f} s); "
+              f"collectives {json.dumps(counts)}", flush=True)
+        out[verb] = {"s": dt, "stages_s": staged,
+                     "one_process_s": secs[verb], **counts}
+    _check_rank_files(job, rk, 0)
+    print("  one rank, NCCL: every file byte-identical to the one-process "
+          "run's", flush=True)
+
+    # (b) the collectives on CUDA tensors, a one-rank NCCL group
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "metakssd_tpu_torch.probes.collectives_check",
+         "--device", "cuda", "--sizes", "0,1,16777219"], cwd=ROOT,
+        env=dict(os.environ, MKSSD_COORDINATOR=f"127.0.0.1:{free_port()}",
+                 MKSSD_NPROCS="1", MKSSD_PROCID="0"),
+        capture_output=True, text=True, timeout=RANKS_TIMEOUT)
+    line = [x for x in proc.stdout.splitlines() if "collectives ok" in x]
+    check(proc.returncode == 0 and line and "nccl (1 rank, 1 card)"
+          in line[0], "collectives on CUDA tensors, one NCCL rank:\n"
+          + proc.stdout[-2000:] + proc.stderr[-2000:])
+    print(f"  {line[0]} ({time.time() - t:.3f} s; 0, 1 and 2^24 + 3 "
+          "elements of uint8, int32, uint32, int64, uint64: exact)",
+          flush=True)
+
+    # (c) phase 5b's ranks on one card
+    backends = {_rank_report(meshres["ranks_logs"], i, r)["meta"][
+        "collectives"]
+                for i in range(len(RANK_VERBS)) for r in range(RANKS)}
+    check(backends == {f"gloo ({RANKS} ranks share cuda:0)"},
+          f"phase 5b's ranks: {backends}")
+    print(f"  phase 5b's {RANKS} processes: {backends.pop()}", flush=True)
+
+    # (d) several cards
+    ncard = torch.cuda.device_count()
+    if ncard < 2:
+        print(f"  several cards: not run ({ncard} visible)", flush=True)
+        return {"one_rank": out, "several_cards": False}
+    rk = os.path.join(work, "ranks_cards")
+    logs = os.path.join(rk, "logs")
+    dt = run_ranks(_rank_steps(job, rk), 2, logs, RANKS_TIMEOUT, env=env)
+    for r in range(2):
+        _check_rank_files(job, rk, r)
+        for i in range(len(RANK_VERBS)):
+            got = _rank_report(logs, i, r)["meta"]["collectives"]
+            check(got == "nccl (2 ranks, 2 cards)",
+                  f"two ranks on two cards, rank {r}: {got}")
+    print(f"  two ranks on two cards over NCCL: the five verbs in {dt:.3f} "
+          "s, every file byte-identical", flush=True)
+    _dealt_chunks(work, seed, ncard)
+    from metakssd_tpu_torch.parallel import mesh
+    m = mesh.make_mesh(2 * ncard + 1, 1, "cuda")
+    check([s.device for s in m.shards] == [torch.device("cuda", i % ncard)
+                                           for i in range(2 * ncard + 1)],
+          f"make_mesh over {ncard} cards: {m.describe()}")
+    print(f"  several cards: {ncard} visible; make_mesh deals shards "
+          "round-robin", flush=True)
+    return {"one_rank": out, "several_cards": True}
+
+
+def _dealt_chunks(work: str, seed: int, ncard: int) -> None:
+    """``sketch_windows(devices=None)`` deals 2 x ncard chunks over every
+    card (one poly-A chunk through K2): pairs equal the CPU run's."""
+    import numpy as np
+    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.probes import chunk_split
+    from metakssd_tpu_torch.state import accept_tables
+    shuf = write_zero_accepted_shuf(os.path.join(work, "cards.shuf"),
+                                    L3K11, seed)
+    p = shuf.params
+    rng = np.random.default_rng(seed + 5)
+    nchunk = 2 * ncard
+    codes = rng.integers(0, 4, size=nchunk * PIPE_CARDS_CHUNK,
+                         dtype=np.uint8)
+    codes[PIPE_CARDS_CHUNK + 1000:PIPE_CARDS_CHUNK + (1 << 19)] = 0
+    ref = sketch_cuda.sketch_windows(codes, p, accept_tables(shuf, "cpu"),
+                                     want_pos=True,
+                                     chunk_windows=PIPE_CARDS_CHUNK)
+    try:
+        chunk_split.checked_run(codes, p, accept_tables(shuf, "cuda"),
+                                PIPE_CARDS_CHUNK, None, None, ref, reruns=1)
+    except AssertionError as e:
+        check(False, f"chunks dealt over {ncard} cards: {e}")
+    print(f"  sketch_windows(devices=None): {nchunk} chunks over {ncard} "
+          "cards, pairs == cpu", flush=True)
 
 
 def _same_dirs(a: str, b: str, what: str) -> int:
@@ -1965,6 +2151,10 @@ def main(argv=None) -> int:
         t0 = time.time()
         meshres = phase_mesh(work, sres, qres)
         _phase("mesh", t0)
+
+        t0 = time.time()
+        phase_collectives(work, args.seed, meshres)
+        _phase("collectives", t0)
 
         t0 = time.time()
         setres = phase_set(work, args.seed, sres)

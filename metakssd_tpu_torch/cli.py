@@ -27,11 +27,15 @@ verbs that do host work only (``shuffle``, ``reverse``, ``postprocess``,
 
 Several processes (on one host or many) run one job when each is started
 with ``MKSSD_COORDINATOR=host:port`` (rank 0's address),
-``MKSSD_NPROCS`` and ``MKSSD_PROCID``: they join over gloo before the verb
-runs (within ``MKSSD_COORD_TIMEOUT`` seconds, default 300, a budget for
-the join alone), every process reads the same inputs, each writes the
-same files, and each leaves the job when its verb ends.  A join that
-fails is a one-line error and exit code 1.
+``MKSSD_NPROCS`` and ``MKSSD_PROCID``: they join before the verb runs
+(within ``MKSSD_COORD_TIMEOUT`` seconds, default 300, a budget for the
+join alone), every process reads the same inputs, each writes the same
+files, and each leaves the job when its verb ends.  The join is over gloo
+and, where ``--device`` is CUDA and every rank holds a card of its own
+(one rank included), also over NCCL for card tensors
+(``parallel/mesh.choose_backend``); ``TIMER.meta["collectives"]`` names
+the backend and ``["collective_counts"]`` the calls and bytes of each.  A
+join that fails, NCCL's included, is a one-line error and exit code 1.
 """
 
 from __future__ import annotations
@@ -505,12 +509,16 @@ def main(argv: list[str] | None = None) -> int:
         # malformed coordinator is a one-line error, not a hang
         from metakssd_tpu_torch.parallel import mesh as pmesh
         try:
-            joined = pmesh.init_distributed()
+            joined = pmesh.init_distributed(
+                device=getattr(args, "device", None))
         except RuntimeError as e:
             print(f"metakssd_tpu_torch: {e}", file=sys.stderr)
             return 1
     TIMER.reset()
     TIMER.meta["command"] = args.command
+    if joined:
+        TIMER.meta["collectives"] = pmesh.collectives_backend()
+        pmesh.reset_collectives()
     rc = 1
     try:
         rc = args.func(args)
@@ -520,6 +528,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"metakssd_tpu_torch: {e}", file=sys.stderr)
         return 1
     finally:
+        if joined:
+            TIMER.meta["collective_counts"] = dict(pmesh.COLLECTIVES)
         TIMER.report()
         # a first profile against a MarkerDB writes its index sidecars in
         # the background; an in-process caller gets main() back only once

@@ -41,7 +41,7 @@ import torch
 
 from metakssd_tpu_torch.device import resolve_device
 from metakssd_tpu_torch.ops.sketch_cuda import LAUNCHES, _as_u32_bits, \
-    _raise_on
+    _card_of, _raise_on
 
 _U32 = 0xFFFFFFFF
 
@@ -115,9 +115,11 @@ def build_index(hay: torch.Tensor, max_key: int | None = None
                         device=hay.device)
     if nb:
         from metakssd_tpu_torch.ops import _build
-        err = _build.library().mkssd_member_index(
-            hay.data_ptr(), hay.numel(), nb, shift, table.data_ptr(),
-            torch.cuda.current_stream(hay.device).cuda_stream)
+        lib = _build.library()
+        with _card_of(hay):
+            err = lib.mkssd_member_index(
+                hay.data_ptr(), hay.numel(), nb, shift, table.data_ptr(),
+                torch.cuda.current_stream(hay.device).cuda_stream)
         _raise_on(err, "mkssd_member_index")
         LAUNCHES["member_index"] += 1
     return MemberIndex(table, nb, shift)
@@ -257,11 +259,13 @@ def member(hay: torch.Tensor, values: torch.Tensor | None,
     from metakssd_tpu_torch.ops import _build
     lib = _build.library()
     stream = torch.cuda.current_stream(needles.device).cuda_stream
-    err = lib.mkssd_member(
-        hay.data_ptr(), hay.numel(),
-        index.table.data_ptr() if index.nb else None, index.nb, index.shift,
-        None if values is None else values.data_ptr(),
-        needles.data_ptr(), n, out_m.data_ptr(), out_v.data_ptr(), stream)
+    with _card_of(needles):
+        err = lib.mkssd_member(
+            hay.data_ptr(), hay.numel(),
+            index.table.data_ptr() if index.nb else None, index.nb,
+            index.shift, None if values is None else values.data_ptr(),
+            needles.data_ptr(), n, out_m.data_ptr(), out_v.data_ptr(),
+            stream)
     _raise_on(err, "mkssd_member")
     LAUNCHES["member"] += 1
     return out_m, out_v

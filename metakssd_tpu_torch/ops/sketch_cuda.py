@@ -215,6 +215,14 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
 
+def _card_of(t: torch.Tensor):
+    """``t``'s card as the current device for a launch through ctypes,
+    which launches on the current device whatever stream it is given: a
+    tensor on another card than the current one otherwise faults (an
+    illegal address)."""
+    return torch.cuda.device(t.device)
+
+
 def window_compact(codes: torch.Tensor, tables: AcceptTables, p,
                    capacity: int, want_pos: bool = False):
     """K1: kept windows only (see the module docstring)."""
@@ -231,12 +239,13 @@ def window_compact(codes: torch.Tensor, tables: AcceptTables, p,
                if want_pos else None)
     count = torch.zeros(1, dtype=torch.int64, device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = lib.mkssd_sketch_compact(
-        codes.data_ptr(), codes.numel(), nwin, tables.accept.data_ptr(),
-        tables.pfilter.data_ptr(), tables.size, tables.filter.data_ptr(),
-        tables.filter_log2, p.k, p.subk, p.drlevel,
-        out_dr.data_ptr(), out_pos.data_ptr() if want_pos else None,
-        count.data_ptr(), capacity, stream)
+    with _card_of(codes):
+        err = lib.mkssd_sketch_compact(
+            codes.data_ptr(), codes.numel(), nwin, tables.accept.data_ptr(),
+            tables.pfilter.data_ptr(), tables.size, tables.filter.data_ptr(),
+            tables.filter_log2, p.k, p.subk, p.drlevel,
+            out_dr.data_ptr(), out_pos.data_ptr() if want_pos else None,
+            count.data_ptr(), capacity, stream)
     _raise_on(err, "mkssd_sketch_compact")
     LAUNCHES["sketch_compact"] += 1
     return out_dr, out_pos, count
@@ -255,11 +264,12 @@ def window_full(codes: torch.Tensor, tables: AcceptTables, p):
     out_dr = torch.empty(nwin, dtype=torch.int32, device=codes.device)
     out_keep = torch.empty(nwin, dtype=torch.int32, device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = lib.mkssd_sketch_full(
-        codes.data_ptr(), codes.numel(), nwin, tables.accept.data_ptr(),
-        tables.pfilter.data_ptr(), tables.size, tables.filter.data_ptr(),
-        tables.filter_log2, p.k, p.subk, p.drlevel,
-        out_dr.data_ptr(), out_keep.data_ptr(), stream)
+    with _card_of(codes):
+        err = lib.mkssd_sketch_full(
+            codes.data_ptr(), codes.numel(), nwin, tables.accept.data_ptr(),
+            tables.pfilter.data_ptr(), tables.size, tables.filter.data_ptr(),
+            tables.filter_log2, p.k, p.subk, p.drlevel,
+            out_dr.data_ptr(), out_keep.data_ptr(), stream)
     _raise_on(err, "mkssd_sketch_full")
     LAUNCHES["sketch_full"] += 1
     return out_dr, out_keep
@@ -396,9 +406,11 @@ class _Chunk:
             self.done.synchronize()
         return int(self.count[0])
 
-    def result(self, p, want_pos: bool):
+    def result(self, p, want_pos: bool, on_device: bool = False):
         """(drtuples uint32, stream positions int64 or None) of the
-        chunk's kept windows: K1's, or K2's where K1 overflowed."""
+        chunk's kept windows: K1's, or K2's where K1 overflowed.  With
+        ``on_device`` the drtuples stay on the chunk's device, an int32
+        tensor (u32 bits) made on its current stream."""
         lane = self.lane
         n = self.kept()
         if n > self.cap:
@@ -412,6 +424,8 @@ class _Chunk:
             # K1's are complete (its event): read them back past the
             # chunks queued after it
             stream = lane.readback
+        if on_device:
+            return dr, None
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
             dr = dr.cpu().numpy().view(np.uint32)
@@ -423,7 +437,8 @@ class _Chunk:
 def sketch_windows(codes: np.ndarray, p, tables: AcceptTables,
                    want_pos: bool = False,
                    chunk_windows: int = CHUNK_WINDOWS,
-                   capacity: int | None = None, devices=None):
+                   capacity: int | None = None, devices=None,
+                   on_device: bool = False):
     """All kept windows of a code stream -> (drtuples uint32, window
     positions int64 or None), unsorted, duplicates kept: the port of
     ``sketch_pallas.sketch_codes_pallas``'s chunk loop.
@@ -442,7 +457,12 @@ def sketch_windows(codes: np.ndarray, p, tables: AcceptTables,
     K1 are.  On the CPU the same loop runs K1/K2's plain versions
     synchronously.  Parts are joined in chunk order; chunk-relative int32
     positions become int64 stream positions on the host (a batched genome
-    stream passes 2^31 bases)."""
+    stream passes 2^31 bases).  With ``on_device`` (no positions) nothing
+    is read back: the drtuples join as one int32 tensor (u32 bits) on the
+    first chunk's device, made on its current stream, those of other
+    cards by a peer copy."""
+    if on_device and want_pos:
+        raise ValueError("on_device leaves no positions")
     TL = p.kmer_len
     nwin_total = codes.size - TL + 1
     starts = range(0, max(nwin_total, 0), chunk_windows)
@@ -460,7 +480,7 @@ def sketch_windows(codes: np.ndarray, p, tables: AcceptTables,
     def resolve() -> None:
         chunk = pending.popleft()
         with chunk.lane.on():
-            dr, pos = chunk.result(p, want_pos)
+            dr, pos = chunk.result(p, want_pos, on_device)
         drs.append(dr)
         if want_pos:
             poss.append(pos)
@@ -477,6 +497,9 @@ def sketch_windows(codes: np.ndarray, p, tables: AcceptTables,
             resolve()
     while pending:
         resolve()
+    if on_device:
+        return torch.cat([torch.zeros(0, dtype=torch.int32, device=devs[0])]
+                         + [d.to(devs[0]) for d in drs]), None
     dr = np.concatenate(drs) if drs else np.zeros(0, np.uint32)
     if not want_pos:
         return dr, None

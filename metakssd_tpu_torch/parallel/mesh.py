@@ -10,10 +10,19 @@ launch) the data axis spans the ranks and the db axis stays within one,
 as the JAX mesh puts the data axis over hosts; rank r works on
 ``cuda:(r % device_count)``.
 
-The collectives stand in for ``all_gather``/``psum``: ``gather_arrays``
-and ``all_sum`` copy to the host and go over gloo (sizes first, then
-padded buffers), and are the identity with one process.  Only small merged
-results cross: per-shard sketches, count rows, distinct-value runs.
+The collectives stand in for ``all_gather``/``psum`` (``gather_arrays``:
+sizes first, then padded bytes; ``all_sum``: an int64 all-reduce).  The
+join (``init_distributed``) forms a gloo group for the store, the barrier,
+numpy arrays and CPU tensors and, where the job runs on CUDA and every
+rank holds a card of its own, an NCCL group for card tensors
+(``choose_backend``), which the JAX package gets from its device mesh
+(``mesh.py:14-20, 107``).  So the merges below keep their parts on the
+rank's card and cross over NCCL; where ranks share a card (NCCL refuses
+that) the same card tensors cross over gloo on the host.  Where a group
+was joined every collective crosses it, one rank included; without one
+they are the identity.  Only merged results cross: per-shard sketches,
+count rows, distinct-value runs.  ``COLLECTIVES`` counts the calls and
+bytes by backend.
 
 * ``sharded_sketch`` (``mesh.py:634-704``, ``--mesh N``): the code stream
   cut into ``n_data`` shards of ``ceil(nwin / n_data)`` windows with the
@@ -36,8 +45,9 @@ results cross: per-shard sketches, count rows, distinct-value runs.
 * ``make_sharded_profile_step`` (``:179-227``): K1 per data shard, a
   distinct merge, K3 per db shard against the postings, the per-genome sum.
 * ``device_union`` (``:541-631``, ``set -u/-q``): ``torch.unique`` per data
-  shard on its device, a host merge and a gather across ranks; every count
-  is exact, where the JAX step caps each device's at 2.
+  shard on its device, the runs gathered on the card across ranks and
+  merged on the host; every count is exact, where the JAX step caps each
+  device's at 2.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import dataclasses
 import datetime
 import os
 import socket
+import sys
 import time
 
 import numpy as np
@@ -72,10 +83,87 @@ _U32 = 0xFFFFFFFF
 # processes
 # ---------------------------------------------------------------------------
 
+# Calls and bytes of the collectives by backend since reset_collectives();
+# the bytes of a call are its output buffers' on this rank (the sizes'
+# too).  cli.main reports them in TIMER.meta["collective_counts"].
+COLLECTIVES = {"gloo_calls": 0, "gloo_bytes": 0,
+               "nccl_calls": 0, "nccl_bytes": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Join:
+    """What ``init_distributed`` formed: the description of the backend
+    for card tensors, and the NCCL group with its card (None on gloo)."""
+    describe: str
+    card_group: object = None
+    card: torch.device | None = None
+
+
+_JOINED: _Join | None = None
+
+
+def reset_collectives() -> None:
+    for name in COLLECTIVES:
+        COLLECTIVES[name] = 0
+
+
+def choose_backend(layout: list, device) -> tuple[str, str]:
+    """(backend for card tensors, description) from every rank's ``(host,
+    card index, card UUID)``, index and UUID None where the rank holds no
+    card: ``nccl`` where the job runs on ``cuda`` and no two ranks share
+    a card, else ``gloo`` (``--device cpu``, a verb without a device, a
+    rank without a card, or ranks on one card, which NCCL refuses)."""
+    n = len(layout)
+    ranks = f"{n} rank" + ("s" if n > 1 else "")
+    if device is None:
+        return "gloo", f"gloo ({ranks}, no device)"
+    if torch.device(device).type == "cpu":
+        return "gloo", f"gloo ({ranks}, --device cpu)"
+    cards = [(host, uuid) for host, _, uuid in layout]
+    if any(uuid is None for _, uuid in cards):
+        return "gloo", f"gloo ({ranks}, a rank holds no card)"
+    for host, idx, uuid in layout:
+        share = cards.count((host, uuid))
+        if share > 1:
+            return "gloo", f"gloo ({share} ranks share cuda:{idx})"
+    return "nccl", f"nccl ({ranks}, {n} card" + ("s)" if n > 1 else ")")
+
+
+def _local_card(device, rank: int) -> tuple[int | None, str | None]:
+    """(index, UUID) of the card this rank works on, made the current
+    device: the index that ``device`` names, else ``rank % device_count``;
+    (None, None) off CUDA or for ``--device cpu``."""
+    if not torch.cuda.is_available() or (
+            device is not None and torch.device(device).type != "cuda"):
+        return None, None
+    idx = torch.device(device).index if device is not None else None
+    if idx is None:
+        idx = rank % torch.cuda.device_count()
+    torch.cuda.set_device(idx)
+    return idx, str(torch.cuda.get_device_properties(idx).uuid)
+
+
+def _nccl_group(card: torch.device):
+    """An NCCL group of every rank, its communicator formed now by one
+    int64 all-reduce on ``card``, so that a failure is the join's."""
+    import torch.distributed as tdist
+    if not tdist.is_nccl_available():
+        raise RuntimeError("NCCL is not available in this PyTorch build")
+    group = tdist.new_group(backend="nccl")
+    try:
+        probe = torch.ones(1, dtype=torch.int64, device=card)
+        tdist.all_reduce(probe, group=group)
+        torch.cuda.synchronize(card)
+    except BaseException:
+        tdist.distributed_c10d._abort_process_group(group)
+        raise
+    return group
+
+
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> bool:
-    """Join the other processes of a multi-process run over gloo.
+                     process_id: int | None = None, device=None) -> bool:
+    """Join the other processes of a multi-process run.
 
     Arguments default to ``MKSSD_COORDINATOR`` (host:port of rank 0),
     ``MKSSD_NPROCS`` and ``MKSSD_PROCID``; no coordinator: no-op, False.
@@ -84,10 +172,16 @@ def init_distributed(coordinator: str | None = None,
     address is a one-line RuntimeError, not a hang; the probe's time counts
     against the same budget, with at least half of it kept for the join.
     The budget bounds the rendezvous only (an explicit ``TCPStore``); the
-    collectives keep torch's default deadline.  Each rank then works on
-    ``cuda:(rank % device_count)`` where CUDA is present.  Gloo, always:
-    only small merged results cross, and NCCL cannot place two ranks on
-    one card."""
+    collectives keep torch's default deadline.
+
+    Every rank joins a gloo group (the store, the barrier, numpy and CPU
+    tensors), works on ``cuda:(rank % device_count)`` (or the card
+    ``device`` names) where CUDA is present, and publishes its host and
+    card.  Where ``device`` is CUDA and no two ranks share a card
+    (``choose_backend``), the ranks also form an NCCL group for card
+    tensors; where NCCL is unavailable or its group cannot be formed, the
+    join fails: it never falls back to gloo."""
+    global _JOINED
     import torch.distributed as tdist
     if tdist.is_initialized():
         return True
@@ -138,72 +232,168 @@ def init_distributed(coordinator: str | None = None,
                                  timeout=tdist.default_pg_timeout)
         store.set_timeout(tdist.default_pg_timeout)
     except (RuntimeError, ValueError) as e:
-        first = str(e).strip().splitlines()[0] if str(e).strip() else ""
         raise RuntimeError(
             f"multi-host join failed: process {process_id}/{num_processes} "
-            f"could not join {coordinator} within {remaining}s ({first})"
-        ) from None
-    if torch.cuda.is_available():
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+            f"could not join {coordinator} within {remaining}s "
+            f"({_first_line(e)})") from None
+    try:
+        idx, uuid = _local_card(device, process_id)
+        layout = [None] * num_processes
+        tdist.all_gather_object(layout, (socket.gethostname(), idx, uuid))
+        backend, describe = choose_backend(layout, device)
+        if backend == "gloo":
+            _JOINED = _Join(describe)
+        else:
+            card = torch.device("cuda", idx)
+            _JOINED = _Join(describe, _nccl_group(card), card)
+    except (RuntimeError, ValueError) as e:
+        tdist.destroy_process_group()
+        raise RuntimeError(
+            f"multi-host join failed: process {process_id}/{num_processes} "
+            f"could not form the collectives' groups at {coordinator} "
+            f"({_first_line(e)})") from None
+    if backend == "gloo" and device is not None \
+            and torch.device(device).type == "cuda":
+        # a job on cards whose card tensors cross on the host: say why
+        print(f"metakssd_tpu_torch: collectives over {describe}",
+              file=sys.stderr)
     return True
 
 
+def _first_line(e: BaseException) -> str:
+    text = str(e).strip()
+    return text.splitlines()[0] if text else type(e).__name__
+
+
+def collectives_backend() -> str | None:
+    """The description of the joined backend (``nccl (1 rank, 1 card)``,
+    ``gloo (2 ranks share cuda:0)``), or None without a join."""
+    return None if _JOINED is None else _JOINED.describe
+
+
 def leave_distributed(ok: bool) -> None:
-    """Leave the process group, if this process joined one.  After a run
-    that went well every rank waits for the others first, so none tears
-    down a connection that another still reads; after a failure it leaves
-    at once, and the others' pending collectives fail on the closed
-    connections rather than wait.  Leaving before the interpreter exits
-    keeps gloo's threads from being torn down live (an abort)."""
+    """Leave the process groups, if this process joined them.  After a
+    run that went well every rank waits for the others first, so none
+    tears down a connection that another still reads; after a failure it
+    leaves at once (the NCCL group aborted, so that no rank waits in a
+    collective for its watchdog), and the others' pending collectives fail
+    on the closed connections rather than wait.  Leaving before the
+    interpreter exits keeps gloo's threads from being torn down live (an
+    abort)."""
+    global _JOINED
     import torch.distributed as tdist
-    if not (tdist.is_available() and tdist.is_initialized()):
+    joined, _JOINED = _JOINED, None
+    if not _grouped():
         return
     try:
         if ok:
             tdist.barrier()
     finally:
+        if joined is not None and joined.card_group is not None:
+            if ok:
+                tdist.destroy_process_group(joined.card_group)
+            else:
+                tdist.distributed_c10d._abort_process_group(
+                    joined.card_group)
         tdist.destroy_process_group()
+
+
+def _grouped() -> bool:
+    """Whether this process joined a process group (at any size)."""
+    import torch.distributed as tdist
+    return tdist.is_available() and tdist.is_initialized()
 
 
 def world() -> tuple[int, int]:
     """(processes, this rank): (1, 0) without a joined process group."""
     import torch.distributed as tdist
-    if tdist.is_available() and tdist.is_initialized():
+    if _grouped():
         return tdist.get_world_size(), tdist.get_rank()
     return 1, 0
 
 
-def gather_arrays(arr: np.ndarray) -> list[np.ndarray]:
-    """Every rank's 1-D array, in rank order (sizes may differ); the
-    identity with one process.  The bytes go over gloo on the CPU: the
-    sizes first, then buffers padded to the largest."""
-    nproc, _ = world()
-    arr = np.ascontiguousarray(arr)
-    if nproc == 1:
-        return [arr]
+def _route(x: torch.Tensor):
+    """(group, device the bytes cross on, backend) for a tensor: a card
+    tensor takes the NCCL group on this rank's card where one was formed;
+    anything else gloo on the host (where the ranks share a card, the
+    layout's choice)."""
+    j = _JOINED
+    if x.device.type == "cuda" and j is not None and j.card_group is not None:
+        return j.card_group, j.card, "nccl"
+    return None, torch.device("cpu"), "gloo"
+
+
+def _count(backend: str, calls: int, nbytes: int) -> None:
+    COLLECTIVES[f"{backend}_calls"] += calls
+    COLLECTIVES[f"{backend}_bytes"] += nbytes
+
+
+def _gather_tensor(x: torch.Tensor) -> list[torch.Tensor]:
+    """Every rank's 1-D tensor (sizes may differ), in rank order, back on
+    ``x``'s device: the byte sizes first, then the bytes padded to the
+    largest, rounded up to 8 so that each rank's slice views as the dtype
+    again.  NCCL runs after the current stream's work on the card: a
+    tensor made on another stream must be waited on before it comes
+    here."""
     import torch.distributed as tdist
-    raw = torch.from_numpy(arr.view(np.uint8).reshape(-1).copy())
-    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(nproc)]
-    tdist.all_gather(sizes, torch.tensor([raw.numel()], dtype=torch.int64))
-    width = max(1, max(int(s) for s in sizes))
-    buf = torch.zeros(width, dtype=torch.uint8)
+    group, dev, backend = _route(x)
+    # (an empty tensor may carry a stride that refuses the byte view)
+    raw = x.contiguous().reshape(-1).view(torch.uint8).to(dev) \
+        if x.numel() else torch.zeros(0, dtype=torch.uint8, device=dev)
+    nproc = world()[0]
+    sizes = torch.empty(nproc, dtype=torch.int64, device=dev)
+    tdist.all_gather_into_tensor(
+        sizes, torch.tensor([raw.numel()], dtype=torch.int64, device=dev),
+        group=group)
+    sizes = sizes.tolist()
+    width = max(8, -(-max(sizes) // 8) * 8)
+    buf = torch.zeros(width, dtype=torch.uint8, device=dev)
     buf[:raw.numel()] = raw
-    outs = [torch.empty(width, dtype=torch.uint8) for _ in range(nproc)]
-    tdist.all_gather(outs, buf)
-    return [o[:int(s)].numpy().view(arr.dtype)
-            for o, s in zip(outs, sizes)]
+    out = torch.empty(nproc * width, dtype=torch.uint8, device=dev)
+    tdist.all_gather_into_tensor(out, buf, group=group)
+    _count(backend, 2, 8 * nproc + out.numel())
+    return [out[r * width:r * width + s].view(x.dtype).to(x.device)
+            for r, s in enumerate(sizes)]
 
 
-def all_sum(arr: np.ndarray) -> np.ndarray:
-    """The int64 sum of ``arr`` over every rank (``psum``); the identity
-    with one process."""
-    arr = np.ascontiguousarray(arr, dtype=np.int64)
-    if world()[0] == 1:
-        return arr
+def gather_arrays(arr):
+    """Every rank's 1-D array, in rank order (sizes may differ): the JAX
+    package's ``all_gather``.  A numpy array comes back as numpy arrays
+    (over gloo); a tensor as tensors on its device, a card tensor over
+    NCCL (on this rank's card) where the join formed an NCCL group, else
+    over gloo.  Where a group was joined the bytes cross it even at one
+    rank; without one this is the identity."""
+    if isinstance(arr, torch.Tensor):
+        return _gather_tensor(arr) if _grouped() else [arr]
+    arr = np.ascontiguousarray(arr)
+    if not _grouped():
+        return [arr]
+    got = _gather_tensor(torch.from_numpy(arr.reshape(-1).view(np.uint8)))
+    return [g.numpy().view(arr.dtype) for g in got]
+
+
+def all_sum(arr):
+    """The int64 sum of ``arr`` over every rank (``psum``), numpy for
+    numpy (over gloo), a tensor on its device for a tensor (a card tensor
+    over NCCL, on this rank's card, where the join formed an NCCL group,
+    else over gloo; uint64 bits sum as int64).  Where a group was joined
+    the sum crosses it even at one rank; without one this is the
+    identity."""
     import torch.distributed as tdist
-    t = torch.from_numpy(arr.copy())
-    tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
-    return t.numpy()
+    if not isinstance(arr, torch.Tensor):
+        arr = np.ascontiguousarray(arr, dtype=np.int64)
+        if not _grouped():
+            return arr
+        return all_sum(torch.from_numpy(arr)).numpy()
+    x = arr.view(torch.int64) if arr.dtype == torch.uint64 else \
+        arr.to(torch.int64)
+    if not _grouped():
+        return x
+    group, dev, backend = _route(x)
+    t = x.to(dev, copy=True)
+    tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=group)
+    _count(backend, 1, t.numel() * 8)
+    return t.to(arr.device)
 
 
 # ---------------------------------------------------------------------------
@@ -295,20 +485,27 @@ def _as_mesh(mesh) -> Mesh:
     return mesh if isinstance(mesh, Mesh) else make_mesh(1, 1, mesh)
 
 
+def _home(mesh: Mesh) -> torch.device:
+    """The device this rank's parts join on before they cross: its first
+    data row's (over NCCL, the card the join chose)."""
+    return mesh.row(mesh.local_rows[0])[0].device
+
+
 # ---------------------------------------------------------------------------
 # --mesh: the data-parallel sketch
 # ---------------------------------------------------------------------------
 
 def _shard_windows(seg: np.ndarray, shuf, dev, tables: dict, **kw):
-    """All kept drtuples of one shard's codes: K1/K2 on ``dev`` on the
-    kernel path, golden off it."""
+    """All kept drtuples of one shard's codes: on the kernel path K1/K2's
+    on ``dev``, an int32 tensor (u32 bits) left there; off it golden's,
+    uint64 numpy."""
     if not sketch.on_device_path(shuf):
         return np.asarray(window_drtuples(seg, shuf), np.uint64)
     if dev not in tables:
         tables[dev] = accept_tables(shuf, dev)
-    dr, _ = sketch_cuda.sketch_windows(seg, shuf.params, tables[dev],
-                                       devices=[dev], **kw)
-    return dr.astype(np.uint64)
+    return sketch_cuda.sketch_windows(seg, shuf.params, tables[dev],
+                                      devices=[dev], on_device=True,
+                                      **kw)[0]
 
 
 def sharded_sketch(codes: np.ndarray, shuf, mesh, tables=None,
@@ -318,23 +515,33 @@ def sharded_sketch(codes: np.ndarray, shuf, mesh, tables=None,
     ``sketch.sketch_codes``.  Shard d holds windows ``[d * nwin, (d + 1) *
     nwin)`` of ``nwin = ceil(windows / n_data)`` (its codes overlap the next
     shard's by TL-1), so every window is counted once; a shard past the
-    stream's end is empty.  Each rank sketches its rows and the parts are
-    gathered.  ``tables``, the sketch tables on one device, are reused
-    for the shards on it.  ``kw`` reaches the chunk loop
-    (``chunk_windows``, ``capacity``)."""
+    stream's end is empty.  Each rank sketches its rows; on the kernel
+    path their drtuples stay on the card, join on the rank's card and are
+    gathered there (``mesh.py:674-676``), then read back once and sorted
+    on the host, as the JAX package does (``:702-703``).  ``tables``, the
+    sketch tables on one device, are reused for the shards on it.  ``kw``
+    reaches the chunk loop (``chunk_windows``, ``capacity``)."""
     mesh = _as_mesh(mesh)
     codes = np.asarray(codes, np.uint8)
     TL = shuf.params.kmer_len
     nwin_total = max(codes.size - TL + 1, 0)
     nwin = max(-(-nwin_total // mesh.n_data), 1)
     tables = {} if tables is None else {tables.accept.device: tables}
-    parts = [np.zeros(0, np.uint64)]
+    parts = []
     for d in mesh.local_rows:
         seg = codes[d * nwin:d * nwin + nwin + TL - 1]
         if seg.size >= TL:
             parts.append(_shard_windows(seg, shuf, mesh.row(d)[0].device,
                                         tables, **kw))
-    out = np.concatenate(gather_arrays(np.concatenate(parts)))
+    if sketch.on_device_path(shuf):
+        home = _home(mesh)
+        mine = torch.cat([torch.zeros(0, dtype=torch.int32, device=home)]
+                         + [x.to(home) for x in parts])
+        out = torch.cat(gather_arrays(mine)).cpu().numpy() \
+            .view(np.uint32).astype(np.uint64)
+    else:
+        out = np.concatenate(gather_arrays(
+            np.concatenate([np.zeros(0, np.uint64)] + parts)))
     out.sort()
     return out
 
@@ -407,10 +614,11 @@ def _my_queries(mesh: Mesh, nqry: int) -> list[tuple[int, tuple]]:
 
 
 def _posting_counts(hay: StaticHaystack, needles: torch.Tensor,
-                    bounds: torch.Tensor) -> np.ndarray:
-    """int64 [len(bounds) - 1]: per genome, the summed values (query
-    multiplicities) of its postings, one K3 call per MAX_NEEDLES needles;
-    ``bounds`` are the genomes' posting bounds, relative to ``needles``."""
+                    bounds: torch.Tensor) -> torch.Tensor:
+    """int64 [len(bounds) - 1] on the needles' device: per genome, the
+    summed values (query multiplicities) of its postings, one K3 call per
+    MAX_NEEDLES needles; ``bounds`` are the genomes' posting bounds,
+    relative to ``needles``."""
     out = torch.zeros(bounds.numel() - 1, dtype=torch.int64,
                       device=needles.device)
     for lo in range(0, needles.numel(), MAX_NEEDLES):
@@ -421,7 +629,7 @@ def _posting_counts(hay: StaticHaystack, needles: torch.Tensor,
         torch.cumsum(val.to(torch.int64) & _U32, 0, out=cs[1:])
         b = (bounds - lo).clamp(0, piece.numel())
         out += cs[b[1:]] - cs[b[:-1]]
-    return out.cpu().numpy()
+    return out
 
 
 def sharded_shared_counts(ref, qry, mesh) -> np.ndarray:
@@ -434,15 +642,20 @@ def sharded_shared_counts(ref, qry, mesh) -> np.ndarray:
     shard, K3 in values mode (the query's distinct ids as haystack, their
     multiplicities as values) gives each posting its multiplicity, 0 where
     the query lacks it; a genome's count is the prefix difference at its
-    bounds, summed over the shards.  Counts are exact int64 per process,
-    summed over the ranks, and wrap to uint32 as the serial path's do."""
+    bounds, summed over the shards.  Counts are exact int64 and stay on
+    the rank's card (a shard on another card of the process adds in by a
+    peer copy) until one sum over the ranks there (the ``psum`` of
+    ``mesh.py:391``) and one read back; they wrap to uint32 as the serial
+    path's do."""
     mesh = _as_mesh(mesh)
     if isinstance(ref, str):
         ref = CoDir.read(ref, want_abund=False)
     if isinstance(qry, str):
         qry = CoDir.read(qry, want_abund=False)
     num_refs = ref.stat.infile_num
-    out = np.zeros((qry.stat.infile_num, num_refs), np.int64)
+    home = _home(mesh)
+    out = torch.zeros((qry.stat.infile_num, num_refs), dtype=torch.int64,
+                      device=home)
     mine = _my_queries(mesh, qry.stat.infile_num)
     for c in range(ref.stat.comp_num):
         post = np.asarray(ref.ids[c], np.uint32)
@@ -469,8 +682,9 @@ def sharded_shared_counts(ref, qry, mesh) -> np.ndarray:
                 if s.device not in hays:
                     hays[s.device] = StaticHaystack(
                         uq, mult.astype(np.uint32), s.device)
-                out[q] += _posting_counts(hays[s.device], needles, b)
-    return all_sum(out).astype(np.uint32)
+                out[q] += _posting_counts(hays[s.device], needles,
+                                          b).to(home)
+    return all_sum(out).cpu().numpy().astype(np.uint32)
 
 
 def make_sharded_profile_step(mesh, *, k: int, subk: int, drlevel: int,
@@ -485,8 +699,11 @@ def make_sharded_profile_step(mesh, *, k: int, subk: int, drlevel: int,
 
     returns uint32 [num_refs]: per genome, its postings found in the
     distinct union of the shards' sketches.  K1 (K2 on overflow) sketches
-    each data row on its device, the union is ``device_union`` over the
-    mesh, and K3 tests each db slice against it on the slice's device."""
+    each data row on its device, the rows' sketches stay there for the
+    union (``_union_rows``), and K3 tests db slice j against it on shard
+    (j % n_data, j), in the process that owns that row; the slices'
+    counts add up on the rank's card and one sum over the ranks there
+    gives every rank the whole (the ``psum`` of ``mesh.py:218``)."""
     mesh = _as_mesh(mesh)
     p = SketchParams(k=k, subk=subk, drlevel=drlevel)
     tl = p.kmer_len
@@ -497,24 +714,28 @@ def make_sharded_profile_step(mesh, *, k: int, subk: int, drlevel: int,
             raise ValueError(f"codes must be [{mesh.n_data}, "
                              f"{nwin + tl - 1}], got {codes.shape}")
         tables: dict = {}
-        parts = [np.zeros(0, np.uint32)]
+        parts = []
         for d in mesh.local_rows:
             dev = mesh.row(d)[0].device
             if dev not in tables:
                 tables[dev] = make_accept_tables(accept_tups, pfilters, subk,
                                                  dev)
             parts.append(sketch_cuda.sketch_windows(
-                codes[d], p, tables[dev], devices=[dev])[0])
-        keys = np.concatenate(gather_arrays(np.concatenate(parts)))
-        uniq = device_union(keys, mesh)
+                codes[d], p, tables[dev], devices=[dev], on_device=True)[0])
+        uniq = _union_rows(parts, mesh, False)
         # 0xFFFFFFFF is the JAX step's pad: it never matches there
         uniq = uniq[uniq != _U32]
         ref_ids = np.asarray(ref_ids, np.uint32)
         ref_gid = np.asarray(ref_gid, np.int64)
         per = -(-ref_ids.size // mesh.n_db)
-        counts = np.zeros(num_refs, np.int64)
-        for s in mesh.row(mesh.local_rows[0]):
-            sl = slice(s.db * per, (s.db + 1) * per)
+        home = _home(mesh)
+        counts = torch.zeros(num_refs, dtype=torch.int64, device=home)
+        mine = set(mesh.local_rows)
+        for j in range(mesh.n_db):
+            if j % mesh.n_data not in mine:
+                continue
+            s = mesh.row(j % mesh.n_data)[j]
+            sl = slice(j * per, (j + 1) * per)
             hay = StaticHaystack(uniq, None, s.device)
             hit, _ = merge.member(hay.hay, None,
                                   u32_tensor(ref_ids[sl]).to(s.device),
@@ -522,8 +743,8 @@ def make_sharded_profile_step(mesh, *, k: int, subk: int, drlevel: int,
             got = torch.zeros(num_refs, dtype=torch.int64, device=s.device)
             got.index_add_(0, torch.from_numpy(ref_gid[sl]).to(s.device),
                            hit.to(torch.int64))
-            counts += got.cpu().numpy()
-        return counts.astype(np.uint32)
+            counts += got.to(home)
+        return all_sum(counts).cpu().numpy().astype(np.uint32)
 
     return step
 
@@ -532,44 +753,60 @@ def make_sharded_profile_step(mesh, *, k: int, subk: int, drlevel: int,
 # set -u / -q
 # ---------------------------------------------------------------------------
 
-def _unique_on(ids: np.ndarray, dev, return_counts: bool):
-    """(distinct values ascending, exact int64 counts or None) of a uint32
-    array, sorted on ``dev``."""
-    x = u32_tensor(ids).to(dev) ^ _U32_FLIP
-    got = torch.unique(x, sorted=True, return_counts=return_counts)
+def _unique_on(x: torch.Tensor, return_counts: bool):
+    """(distinct values ascending, exact int64 counts or None) of an int32
+    tensor of u32 bits, sorted on its device; the values as u32 bits."""
+    got = torch.unique(x ^ _U32_FLIP, sorted=True,
+                       return_counts=return_counts)
     vals, counts = got if return_counts else (got, None)
-    vals = (vals ^ _U32_FLIP).cpu().numpy().view(np.uint32)
-    return vals, None if counts is None else counts.cpu().numpy() \
-        .astype(np.int64)
+    return vals ^ _U32_FLIP, counts
+
+
+def _union_rows(parts: list, mesh: Mesh, return_counts: bool):
+    """The distinct values (uint32, ascending) and, with ``return_counts``,
+    the exact int64 counts of every rank's ``parts`` (int32 tensors of u32
+    bits, each on its data row's device): each part's ``torch.unique`` on
+    its device; the runs and counts join on the rank's card and are
+    gathered there (the ``all_gather`` of ``mesh.py:576``), read back once
+    and merged on the host."""
+    home = _home(mesh)
+    runs = [torch.zeros(0, dtype=torch.int32, device=home)]
+    cnts = [torch.zeros(0, dtype=torch.int64, device=home)]
+    for x in parts:
+        if x.numel():
+            vals, counts = _unique_on(x, return_counts)
+            runs.append(vals.to(home))
+            if return_counts:
+                cnts.append(counts.to(home))
+    vals = torch.cat(gather_arrays(torch.cat(runs))).cpu().numpy() \
+        .view(np.uint32)
+    uniq, inv = np.unique(vals, return_inverse=True)
+    if not return_counts:
+        return uniq
+    counts = torch.cat(gather_arrays(torch.cat(cnts))).cpu().numpy()
+    tot = np.bincount(inv.reshape(-1), weights=counts.astype(np.float64),
+                      minlength=uniq.size)
+    return uniq, tot.astype(np.int64)
 
 
 def device_union(ids, mesh, return_counts: bool = False):
     """``np.unique(ids)`` of a uint32 array: the distinct values ascending
     and, with ``return_counts``, their exact occurrence counts (int64).
     ``mesh`` is a Mesh, or a device for one shard.  Each data row takes
-    ``ceil(n / n_data)`` ids and sorts them on its device; the rows' runs
-    are gathered and merged on the host."""
+    ``ceil(n / n_data)`` ids and sorts them on its device, and the rows'
+    runs merge (``_union_rows``); one row in a process that joined no
+    group is read back as it is."""
     mesh = _as_mesh(mesh)
     ids = np.ascontiguousarray(ids, dtype=np.uint32)
     if ids.size == 0:
         empty = np.zeros(0, np.uint32)
         return (empty, np.zeros(0, np.int64)) if return_counts else empty
-    if mesh.n_data == 1:
-        vals, counts = _unique_on(ids, mesh.shards[0].device, return_counts)
-        return (vals, counts) if return_counts else vals
+    if mesh.n_data == 1 and not _grouped():
+        vals, counts = _unique_on(u32_tensor(ids).to(mesh.shards[0].device),
+                                  return_counts)
+        vals = vals.cpu().numpy().view(np.uint32)
+        return (vals, counts.cpu().numpy()) if return_counts else vals
     per = -(-ids.size // mesh.n_data)
-    runs, cnts = [np.zeros(0, np.uint32)], [np.zeros(0, np.int64)]
-    for d in mesh.local_rows:
-        part = ids[d * per:(d + 1) * per]
-        if part.size:
-            vals, counts = _unique_on(part, mesh.row(d)[0].device, True)
-            runs.append(vals)
-            cnts.append(counts)
-    vals = np.concatenate(gather_arrays(np.concatenate(runs)))
-    uniq, inv = np.unique(vals, return_inverse=True)
-    if not return_counts:
-        return uniq
-    counts = np.concatenate(gather_arrays(np.concatenate(cnts)))
-    tot = np.bincount(inv.reshape(-1), weights=counts.astype(np.float64),
-                      minlength=uniq.size)
-    return uniq, tot.astype(np.int64)
+    return _union_rows([u32_tensor(ids[d * per:(d + 1) * per])
+                        .to(mesh.row(d)[0].device)
+                        for d in mesh.local_rows], mesh, return_counts)

@@ -428,3 +428,40 @@ def test_cli_shard_db_matches_jax(art, case):
     assert want == _tsv(cli.main, base + ["--device", "cpu"])
     assert [k[4][:2] for k in composite._INDEX_CACHE if k[3]] == [(1, 4)]
     jax_composite.wait_staging()
+
+
+@pytest.fixture(scope="module")
+def wide(tmp_path_factory):
+    """K12S6L2 (k - drlevel > 8, so the golden route, off the kernels'):
+    six 40 kbp genomes sketched by the JAX CLI as the reference and a
+    1,603-read fastq from genome 2."""
+    tmp = tmp_path_factory.mktemp("mesh_wide")
+    shufp, _ = _shuf(tmp, 20, (12, 6, 2))
+    rng = np.random.default_rng(1)
+    gdir = tmp / "g"
+    gdir.mkdir()
+    genomes = [random_seq(rng, 40_000) for _ in range(6)]
+    for i, g in enumerate(genomes):
+        write_fasta(str(gdir / f"g{i}.fa"), [g])
+    fq = str(tmp / "r.fq")
+    write_fastq(fq, reads_from_genome(np.random.default_rng(3), genomes[2],
+                                      1603, 120))
+    ref = str(tmp / "ref")
+    assert jax_cli.main(["dist", "-L", shufp, "-o", ref, str(gdir)]) == 0
+    return {"tmp": tmp, "shuf": shufp, "g": str(gdir), "fq": fq,
+            "ref": ref}
+
+
+@pytest.mark.parametrize("case", ["dist_mesh3", "profile_mesh2"])
+def test_cli_mesh_wide_matches_jax_serial(wide, case):
+    """``--mesh`` at (12, 6, 2): each shard takes the golden route, and
+    the files are the JAX CLI's without ``--mesh`` (the JAX CLI itself
+    raises under ``--mesh`` there, ``metakssd_tpu/ops/sketch_xla.py:173``,
+    a difference kept on purpose)."""
+    a, b = str(wide["tmp"] / f"jax_{case}"), str(wide["tmp"] / f"port_{case}")
+    argv, n = {"dist_mesh3": (["dist", "-L", wide["shuf"], wide["g"]], "3"),
+               "profile_mesh2": (["profile", "-L", wide["shuf"], "-r",
+                                  wide["ref"], wide["fq"]], "2")}[case]
+    assert jax_cli.main(argv + ["-o", a]) == 0
+    assert cli.main(argv + ["-o", b, "--mesh", n, "--device", "cpu"]) == 0
+    _same(a, b)

@@ -2,7 +2,13 @@
 against the same shards on the CPU: ``sharded_sketch`` over N data shards
 (K1 on each, K2 where a chunk overflows), ``ShardedMatchIndex`` and
 ``sharded_shared_counts`` over N db shards (K3 on each), and
-``device_union`` over N data shards.
+``device_union`` over N data shards.  Then the NCCL route: a child process
+joins a one-rank NCCL group and round-trips the collectives on CUDA
+tensors (``probes/collectives_check``), and another runs
+``sharded_shared_counts`` and ``device_union`` there, equal to the CPU's;
+with two or more cards, two ranks of one card each do the same, run
+``dist --mesh 4``, ``dist -r --shard-db 4`` and ``set -u`` byte-identical
+to one process, and ``make_mesh`` deals shards over the cards.
 
 Every test here carries the ``cuda`` marker and skips where there is no
 CUDA device.  The module imports neither jax nor the JAX package, so on a
@@ -10,6 +16,10 @@ GPU machine:
 
     python -m pytest -m cuda tests/test_torch_mesh_cuda.py
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +31,7 @@ from metakssd_tpu_torch.formats.shuf import make_shuf
 from metakssd_tpu_torch.ops import sketch, sketch_cuda
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.parallel import mesh
+from ranks import ROOT, free_port, run_ranks
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +138,167 @@ def test_device_union_cuda_over_shards(cuda):
     wv, wc = np.unique(ids, return_counts=True)
     np.testing.assert_array_equal(v, wv)
     np.testing.assert_array_equal(c, wc)
+
+
+# ---------------------------------------------------------------------------
+# the NCCL route
+# ---------------------------------------------------------------------------
+
+JOB_TIMEOUT = 300                 # seconds a process of a job may take
+
+
+def _ranks_run(argv: list, nprocs: int, env=None) -> list[str]:
+    """``python argv`` once per rank, joined; every rank must exit 0;
+    returns their outputs."""
+    port = free_port()
+    procs = []
+    for r in range(nprocs):
+        e = dict(os.environ if env is None else env,
+                 MKSSD_COORDINATOR=f"127.0.0.1:{port}",
+                 MKSSD_NPROCS=str(nprocs), MKSSD_PROCID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, *argv], cwd=ROOT, env=e,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=JOB_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return outs
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards, {torch.cuda.device_count()} "
+                    "visible: NCCL takes one rank a card")
+
+
+def test_one_rank_nccl_collectives(cuda):
+    """A one-rank NCCL group on the card: the gather and the sum of CUDA
+    tensors of 0, 1 and 2^24 + 3 elements (uint8 to uint64) give the
+    input back, over NCCL, equal to the numpy forms over gloo."""
+    out, = _ranks_run(["-m", "metakssd_tpu_torch.probes.collectives_check",
+                       "--device", "cuda", "--sizes", "0,1,16777219"], 1)
+    assert "collectives ok rank 0 nccl (1 rank, 1 card)" in out, out
+
+
+_MERGES = (
+    "import sys, numpy as np\n"
+    "from metakssd_tpu_torch.parallel import mesh\n"
+    "d = sys.argv[1]\n"
+    "assert mesh.init_distributed(device='cuda')\n"
+    "assert mesh.collectives_backend().startswith('nccl'), "
+    "mesh.collectives_backend()\n"
+    "n, r = mesh.world()\n"
+    "got = mesh.sharded_shared_counts(d + '/ref', d + '/qry', "
+    "mesh.make_mesh(2 * n, 2, 'cuda'))\n"
+    "assert np.array_equal(got, np.load(d + '/counts.npy'))\n"
+    "ids = np.load(d + '/ids.npy')\n"
+    "v, c = mesh.device_union(ids, mesh.make_mesh(None, 1, 'cuda'), "
+    "return_counts=True)\n"
+    "wv, wc = np.unique(ids, return_counts=True)\n"
+    "assert np.array_equal(v, wv) and np.array_equal(c, wc)\n"
+    "assert mesh.COLLECTIVES['nccl_calls'] >= 3, mesh.COLLECTIVES\n"
+    "mesh.leave_distributed(True)\n"
+    "print('merges ok', r)\n")
+
+
+@pytest.mark.parametrize("nprocs", [1, 2])
+def test_nccl_merges_match_cpu(cuda, tmp_path, nprocs):
+    """``sharded_shared_counts`` (2 data x 2 db shards a rank) and
+    ``device_union`` in a joined job on the cards: the CPU's counts and
+    np.unique's values and counts, their merges over NCCL."""
+    if nprocs > 1:
+        _two_cards()
+    rng = np.random.default_rng(71)
+    pool = np.unique(_u32(rng, 0, 1 << 32, 40_000))
+    ref = [[(np.unique(rng.choice(pool, 3000)), None) for _ in range(2)]
+           for _ in range(30)]
+    qry = [[(np.sort(np.concatenate([x, x[::3]])), None)
+            for x in (rng.choice(pool, 2000), rng.choice(pool, 500))]
+           for _ in range(5)]
+    _codir(str(tmp_path / "ref"), ref)
+    _codir(str(tmp_path / "qry"), qry)
+    np.save(tmp_path / "counts.npy", mesh.sharded_shared_counts(
+        str(tmp_path / "ref"), str(tmp_path / "qry"), "cpu"))
+    np.save(tmp_path / "ids.npy", np.concatenate([
+        _u32(rng, 0, 1 << 32, 300_000), _u32(rng, 0, 5000, 100_000),
+        np.full(3, ALL_ONES, np.uint32)]))
+    script = tmp_path / "merges.py"
+    script.write_text(_MERGES)
+    outs = _ranks_run([str(script), str(tmp_path)], nprocs,
+                      env=dict(os.environ, PYTHONPATH=ROOT))
+    for r, out in enumerate(outs):
+        assert f"merges ok {r}" in out, out
+
+
+def test_two_rank_nccl_collectives(cuda):
+    _two_cards()
+    outs = _ranks_run(["-m", "metakssd_tpu_torch.probes.collectives_check",
+                       "--device", "cuda", "--sizes", "0,1,1000003"], 2)
+    for r, out in enumerate(outs):
+        assert f"collectives ok rank {r} nccl (2 ranks, 2 cards)" in out, out
+
+
+def _files(root: str) -> dict:
+    out = {}
+    for f in sorted(os.listdir(root)):
+        if not f.startswith("."):
+            with open(os.path.join(root, f), "rb") as fh:
+                out[f] = fh.read()
+    return out
+
+
+def test_two_rank_nccl_cli_matches_one_process(cuda, tmp_path):
+    """Two ranks, one card each: ``dist --mesh 4``, ``dist -r --shard-db
+    4`` and ``set -u`` write one process's files, their merges over
+    NCCL."""
+    _two_cards()
+    from metakssd_tpu_torch import cli
+    from metakssd_tpu_torch.formats.shuf import write_shuf
+    from metakssd_tpu_torch.probes.collectives_check import read_report
+    rng = np.random.default_rng(81)
+    gdir = tmp_path / "g"
+    gdir.mkdir()
+    for i in range(4):
+        seq = "".join(rng.choice(list("ACGT"), 50_000))
+        (gdir / f"g{i}.fa").write_text(f">g{i}\n{seq}\n")
+    shufp = str(tmp_path / "t.shuf")
+    write_shuf(shufp, make_shuf(SketchParams(8, 5, 2), seed=9))
+    cu = ["--device", "cuda"]
+
+    def j(name):
+        return str(tmp_path / name)
+    verbs = {"co": ["dist", "-L", shufp, "--mesh", "4", str(gdir)],
+             "dist": ["dist", "-r", j("co_one"), "--shard-db", "4",
+                      j("co_one")],
+             "set": ["set", "-u", j("co_one")]}
+    for name, argv in verbs.items():
+        assert cli.main(argv + ["-o", j(f"{name}_one"), *cu]) == 0
+    steps = [(argv + ["-o", j(f"{name}_p{{rank}}"), *cu], None)
+             for name, argv in verbs.items()]
+    logs = j("logs")
+    run_ranks(steps, 2, logs, JOB_TIMEOUT,
+              env=dict(os.environ, MKSSD_LOG="json"))
+    for r in range(2):
+        for name in verbs:
+            a, b = _files(j(f"{name}_one")), _files(j(f"{name}_p{r}"))
+            assert sorted(a) == sorted(b) and a
+            for f in a:
+                assert a[f] == b[f], f"rank {r}: {name}/{f}"
+        for i in range(len(steps)):
+            meta = read_report(os.path.join(logs, f"step{i}_rank{r}.log"))[
+                "meta"]
+            assert meta["collectives"] == "nccl (2 ranks, 2 cards)", meta
+            assert meta["collective_counts"]["nccl_calls"] > 0, meta
+
+
+def test_make_mesh_deals_shards_over_cards(cuda):
+    _two_cards()
+    n = torch.cuda.device_count()
+    m = mesh.make_mesh(2 * n + 1, 1, "cuda")
+    assert [s.device for s in m.shards] == \
+        [torch.device("cuda", i % n) for i in range(2 * n + 1)]

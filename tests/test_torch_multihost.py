@@ -2,7 +2,9 @@
 the CPU: the verbs of ``__graft_entry__._mh_worker`` (``dist --mesh 8``,
 ``dist -r --shard-db 4``, ``composite --shard-db 4``, ``set -u``, ``set
 -g``, and ``set -q``) run in both, and every file from both ranks must be
-byte-identical to the serial run's.  Then the join's failures: a malformed
+byte-identical to the serial run's; ``dist --mesh 2``, ``dist -r
+--shard-db 2`` and ``set -u`` in a job of one rank, whose collectives
+cross the gloo group all the same.  Then the join's failures: a malformed
 or dead coordinator and missing variables give exit code 1 and one line
 within the timeout, and a rank that fails fails the whole job.
 """
@@ -20,6 +22,7 @@ import pytest
 from metakssd_tpu_torch import cli
 from metakssd_tpu_torch.formats.shuf import make_shuf, write_shuf
 from metakssd_tpu_torch.params import SketchParams
+from metakssd_tpu_torch.probes.collectives_check import read_report
 from tests.ranks import ROOT, free_port, run_ranks
 from tests.util import random_seq
 
@@ -121,6 +124,39 @@ def test_two_processes_byte_identical(mh_inputs):
                 open(os.path.join(d, f"comp_p{r}.tsv"), "rb") as y:
             text = x.read()
             assert text and text == y.read(), f"rank {r}: composite tsv"
+
+
+def test_one_rank_job_crosses_the_group(mh_inputs):
+    """One joined process (``MKSSD_NPROCS=1``) on the CPU: ``dist --mesh
+    2``, ``dist -r --shard-db 2`` and ``set -u`` write the serial run's
+    files, and each rank's TIMER report names gloo and counts gloo calls
+    above 0: with a group joined the collectives cross it, one rank
+    included."""
+    d = mh_inputs
+    cpu = ["--device", "cpu"]
+
+    def j(*a):
+        return os.path.join(d, *a)
+    steps = [(["dist", "-L", j("t.shuf"), "--mesh", "2", "-o", j("co_one"),
+               j("g"), *cpu], None),
+             (["dist", "-r", j("co_serial"), "--shard-db", "2", "-o",
+               j("dist_one"), j("qco"), *cpu], None),
+             (["set", "-u", "-o", j("set_one"), j("co_serial"), *cpu], None)]
+    logs = j("one_logs")
+    run_ranks(steps, 1, logs, JOB_TIMEOUT,
+              env=dict(os.environ, MKSSD_LOG="json"))
+    for serial, mine in (("co_serial", "co_one"), ("dist_serial", "dist_one"),
+                         ("set_serial", "set_one")):
+        a, b = _tree(j(serial)), _tree(j(mine))
+        assert sorted(a) == sorted(b) and a, (serial, mine)
+        for f in a:
+            assert a[f] == b[f], f"{mine}/{f} differs"
+    for i in range(len(steps)):
+        meta = read_report(os.path.join(logs, f"step{i}_rank0.log"))["meta"]
+        assert meta["collectives"] == "gloo (1 rank, --device cpu)"
+        counts = meta["collective_counts"]
+        assert counts["gloo_calls"] > 0 and counts["gloo_bytes"] > 0, meta
+        assert counts["nccl_calls"] == 0, meta
 
 
 def test_failing_rank_fails_the_job(mh_inputs):
