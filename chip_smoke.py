@@ -165,7 +165,10 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    replayed from a CUDA graph (the path's own time includes the host's
    enqueueing): the median and range of PROBE_REPLAYS timings, taken in
    turns with one ``torch.sum``'s for the sums (replayed alike), and the
-   plain version's;
+   plain version's.  P1's exact search runs through K3's index of its
+   accept table (built once, before the path: one index launch), held
+   against ``build_index_plain`` at the same bucket count; its line
+   prints the index's nb, shift and largest bucket;
 8b. bench: ``python -m metakssd_tpu_torch.bench`` (the root bench.py's
    legs: sketch reads/s on the card and the CPU, ``kernel_chain_mwin``,
    profile latency, abv q/s sparse and dense, e2e profile cold and
@@ -182,7 +185,9 @@ counts of the ``profile``, ``dist --byread``, ``dist --mesh 4`` and
 ``profile --mesh 4`` legs and of each bench run's legs (K1, K2), of the ``dist -r --device cuda``,
 ``dist -r --shard-db 1``, ``set --device cuda``, ``profile --shard-db 1``, ``profile --shard-db 4``,
 ``composite --shard-db 4`` and ``dist -r --shard-db 4`` legs (K3 and its
-index build), each leg's in ``launches_by_leg`` and
+index build; the index build also of the probe path, whose table
+counts in the build's ``max_abs_err``), each leg's in
+``launches_by_leg`` and
 their sum in ``launches``, and of the probe path (P1-P4, one entry per
 variant), and each kernel's bound (K3's and the index build's also per
 shape, K3's with the ``profile --shard-db 1`` call's and one shard's of
@@ -1888,12 +1893,14 @@ PROBE_KERNELS = ("probe_floor", "probe_winmath", "probe_gather",
                  "probe_search")
 
 
-def phase_probes() -> list:
+def phase_probes() -> tuple[list, dict, int]:
     """The probe path on the card (launch counts zeroed before it), then
-    every variant's kernel against its plain version; one record per
-    variant for the kernels' JSON line."""
+    every variant's kernel against its plain version, and P1's exact
+    search index against ``build_index_plain``.  Returns one record per
+    variant for the kernels' JSON line, the path's launch counts and the
+    index's largest difference from its plain version."""
     import torch
-    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.ops import merge, probe, sketch_cuda
     from metakssd_tpu_torch.probes import (probe_floor_chunk,
                                            probe_floor_noread,
                                            probe_kernel_cost, probe_r4)
@@ -1911,8 +1918,12 @@ def phase_probes() -> list:
         check(launches[kern] > 0, f"{kern} never launched: {launches}")
         check(sum(r["launches"] for _, r in runs if r["kernel"] == kern)
                == launches[kern], f"{kern}: launches not all attributed")
+    # P1's exact search reads its accept table's index, built once by
+    # K3's index kernel when P1's variants are made
+    check(launches["member_index"] == 1, "P1's exact index: "
+          f"{launches['member_index']} builds, not 1")
 
-    out = []
+    out, index_err = [], 0
     for pid, r in runs:
         v = r["variant"]
         if v.plain is None:          # K1/K2 on the probe's windows
@@ -1948,25 +1959,46 @@ def phase_probes() -> list:
         bound_ms, bound_by = _bound(v.nbytes, v.ops)
         lib = "none" if lib_ms is None else \
             f"{lib_ms:.4f} ({min(lib_runs):.4f}-{max(lib_runs):.4f})"
+        index = v.tables.get("index")
+        stats = {} if index is None else probe_kernel_cost.index_stats(index)
         print(f"  {pid} {v.name:30s} {ms:8.4f} ms on the card (median of "
               f"{PROBE_REPLAYS}, {min(runs):.4f}-{max(runs):.4f}; "
               f"{r['ms']:.4f} per path dispatch)  plain {plain_ms:9.4f}  "
               f"torch.sum {lib}  bound {bound_ms:.4f} ({bound_by}: "
               f"{v.nbytes} B, {v.ops} ops)  launches {r['launches']}  "
-              "== plain", flush=True)
-        out.append({"name": f"{pid} {v.kernel}: {v.name}", "route": "cuda",
-                    "source": "metakssd_tpu_torch/csrc/probe.cu",
-                    "replaces": v.replaces, "launches": r["launches"],
-                    "max_abs_err": err, "ms": ms,
-                    "ms_range": [min(runs), max(runs)], "path_ms": r["ms"],
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": lib_ms,
-                    "library_ms_range": [min(lib_runs), max(lib_runs)]
-                    if lib_runs else None})
+              + "".join(f"{k} {x}  " for k, x in stats.items())
+              + "== plain", flush=True)
+        rec = {"name": f"{pid} {v.kernel}: {v.name}", "route": "cuda",
+               "source": "metakssd_tpu_torch/csrc/probe.cu",
+               "replaces": v.replaces, "launches": r["launches"],
+               "max_abs_err": err, "ms": ms,
+               "ms_range": [min(runs), max(runs)], "path_ms": r["ms"],
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "library_ms_range": [min(lib_runs), max(lib_runs)]
+               if lib_runs else None, **({"index": stats} if stats else {})}
+        if index is not None:
+            # the index kernel's table at the search's bucket count,
+            # against its plain version on the same accept table
+            accept = v.tables["accept"].cpu()
+            plain = merge.build_index_plain(
+                accept, probe.exact_buckets(accept.numel()))
+            check((index.nb, index.shift) == (plain.nb, plain.shift)
+                  and index.table.shape == plain.table.shape,
+                  f"{pid} {v.name}: index shape {index.nb}/{index.shift} "
+                  f"!= plain {plain.nb}/{plain.shift}")
+            index_err = max(index_err, int(
+                ((index.table.cpu().long() & 0xFFFFFFFF)
+                 - (plain.table.long() & 0xFFFFFFFF)).abs().max().item()))
+            check(torch.equal(index.table.cpu(), plain.table),
+                  f"{pid} {v.name}: member_index table != plain")
+            print(f"  {pid} {v.name}: member_index table of {index.nb} "
+                  "buckets == plain", flush=True)
+        out.append(rec)
         del got, want
     del runs
     torch.cuda.empty_cache()
-    return out
+    return out, launches, index_err
 
 
 # python -m metakssd_tpu_torch.bench at the root bench's defaults (200K
@@ -2165,7 +2197,7 @@ def main(argv=None) -> int:
         _phase("abv", t0)
 
         t0 = time.time()
-        probes = phase_probes()
+        probes, probe_launches, probe_index_err = phase_probes()
         _phase("probes", t0)
 
         t0 = time.time()
@@ -2201,6 +2233,9 @@ def main(argv=None) -> int:
                "profile --shard-db 4": ml["profile --shard-db 4"],
                "composite --shard-db 4": ml["composite --shard-db 4"],
                "dist -r --shard-db 4": ml["dist -r --shard-db 4"]}
+
+    # the index kernel also builds P1's exact search index
+    index_legs = {**k3_legs, "probes": probe_launches}
 
     def by_leg(legs, name):
         return {leg: n[name] for leg, n in legs.items()}
@@ -2242,9 +2277,9 @@ def main(argv=None) -> int:
         {"name": "member_index (K3 index build)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/member.cu",
          "replaces": "metakssd_tpu/ops/merge.py:147",
-         "launches": sum(by_leg(k3_legs, "member_index").values()),
-         "launches_by_leg": by_leg(k3_legs, "member_index"),
-         "max_abs_err": mres["index_err"],
+         "launches": sum(by_leg(index_legs, "member_index").values()),
+         "launches_by_leg": by_leg(index_legs, "member_index"),
+         "max_abs_err": max(mres["index_err"], probe_index_err),
          "ms": mres["shapes"][-1]["index_ms"],
          "plain_ms": mres["shapes"][-1]["index_plain_ms"],
          "bound_ms": mres["shapes"][-1]["index_bound_ms"],

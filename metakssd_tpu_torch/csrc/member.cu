@@ -17,10 +17,14 @@
 // and table[nb] = nh, where nb is a power of two and shift is taken from
 // the haystack's largest key, so that bucket b = x >> shift covers the
 // keys whose top bits are b and the lower bound of x lies in
-// [table[b], table[b + 1]].  nb + 1 <= nh / 8, so the table takes at most
-// 1/8 of the haystack's bytes (nb == 0, below 16 keys: no table, one
-// bucket).  A skewed haystack leaves some buckets large; the search inside
-// a bucket is a binary search, so such a bucket costs log2 of its size.
+// [table[b], table[b + 1]].  K3's own rule (merge.index_shape) takes the
+// most buckets with nb + 1 <= nh / 8, so the table takes at most 1/8 of
+// the haystack's bytes (nb == 0, below 16 keys: no table, one bucket).  A
+// caller may name any power of two with nb + 1 <= nh (valid_index): the
+// probe's exact search (probe.cu) takes the densest, 2049 entries for 4096
+// keys, half the haystack's bytes.  A skewed haystack leaves some buckets
+// large; the search inside a bucket is a binary search, so such a bucket
+// costs log2 of its size.
 //
 // Design for this card.  The TPU layout is not carried over: no [R,128]
 // lane tiles, no 2W window, no host anchor pass and no serial range

@@ -20,8 +20,9 @@
 //                        make_gather_1row (probe_r4.py:90,123).
 //   mkssd_probe_search   window math + table search, no compaction:
 //                        _search_kernel (probe_kernel_cost.py:136), exact
-//                        (K1's lower bound) or signature form (7-level bucket
-//                        descent + 16-bit signature test).
+//                        form (the lower bound of dim in the accept table,
+//                        through a bucket index: below) or signature form
+//                        (7-level bucket descent + 16-bit signature test).
 //
 // Layout: element [b, r, l] of a tile tensor lies at (b*tile_rows + r)*128 +
 // l; the window (b, r, l) reads rows r .. r+TL-1 of lane l.  The output is
@@ -53,9 +54,29 @@
 // Wrapping 32-bit addition and XOR are associative and commutative, so the
 // result is exact whatever the order.  What bounds each kernel on this
 // card: the floors and the window math move each tile byte once (bytes,
-// 3.35 TB/s); the gather and the search are chains of dependent
+// 3.35 TB/s); the gather and the signature search are chains of dependent
 // shared-memory loads, one per step and window (latency, which neither
 // roofline bound sees).
+//
+// The exact search.  The TPU kernel and K1 before its filter ran a
+// branchless binary search of the whole sorted accept table for every
+// window: 12 dependent shared-memory loads for 4096 entries, a chain that
+// held the kernel at 12% of its operations bound.  Here the block stages
+// the accept table and K3's search index of it (ops/merge.MemberIndex,
+// built once per table by mkssd_member_index in member.cu: idx[b] = the
+// lower bound of b << shift, idx[nb] = n) in shared memory.  A window's
+// dim picks its bucket b = dim >> shift; two independent loads give the
+// bucket's range [idx[b], idx[b + 1]), in which the lower bound of dim
+// lies, and K3's search step halves that range only, its last key read
+// at or above dim deciding the hit (no load after the search): at nb =
+// 2048 buckets over 4096 keys (the densest index K3's kernel takes, nb +
+// 1 <= n) a bucket holds about 2 keys, so one or two steps.  An empty
+// bucket gives its start without a read; b >= nb gives n (dim lies above
+// every key); nb = 0 searches the whole table.  The function's least
+// work is the window math plus one table step a window
+// (probes/_common.search_ops(1)), which bounds it by operations; what
+// the kernel spends above it is the index's two loads, the steps past
+// the first, and the bank conflicts of random shared-memory reads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -289,38 +310,92 @@ struct SearchParams {
   int pf_bits;                  // 4 * (subk - drlevel)
 };
 
-// Index of the first entry >= x, in [0, n]: K1's search (csrc/sketch.cu).
-__device__ inline int lower_bound(const uint32_t* a, int n, uint32_t x) {
-  const uint32_t* base = a;
-  int len = n;
-  while (len > 1) {
+// The lower bound of x in a[lo, hi) (hi if every entry is below x), by
+// K3's search step (csrc/member.cu step): halve [base, base + len), where
+// the answer lies in [base, base + len] and ku holds a[base + len]
+// wherever that entry was read, until len is 0.  So ku == x marks a hit
+// without another load: the answer's entry is the last key read that is
+// >= x, and an answer of hi read none.  An empty range reads nothing.
+__device__ inline int lower_bound(const uint32_t* a, int lo, int hi,
+                                  uint32_t x, bool& hit) {
+  int base = lo, len = hi - lo;
+  uint32_t ku = ~x;                 // no key >= x read yet
+  while (len > 0) {
     const int half = len >> 1;
-    base = (base[half] < x) ? base + half : base;
-    len -= half;
+    const uint32_t key = a[base + half];
+    const bool lt = key < x;
+    base = lt ? base + half + 1 : base;
+    len = lt ? len - half - 1 : half;
+    ku = lt ? ku : key;
   }
-  return static_cast<int>(base - a) + (*base < x ? 1 : 0);
+  hit = ku == x;
+  return base;
 }
 
-// Shared memory: exact form, accept[n_accept]; signature form, the first 7
-// BFS level rows [7][128] then the signature words [sig_words][128].
+__device__ inline uint32_t window_dim(uint64_t u, const SearchParams& sp) {
+  return static_cast<uint32_t>((u >> sp.dim_shift) & sp.dim_mask);
+}
+
+// What a hit adds: the window's base (its outer context bits, shifted
+// above the prefix) or'ed with the table position.
+__device__ inline uint32_t window_base(uint64_t u, const SearchParams& sp) {
+  const uint64_t top = (u >> sp.top_shift) & sp.outer_mask;
+  const uint64_t right = u & sp.outer_mask;
+  return static_cast<uint32_t>(((top << sp.outer_bits) | right)
+                               << sp.pf_bits);
+}
+
+// The exact form.  Shared memory: accept[n], then the index's nb + 1
+// entries (none where nb == 0).
 __global__ void __launch_bounds__(kLanes * kGroups)
-search_kernel(const int32_t* __restrict__ tiles, int tile_rows, int nrows,
-              SearchParams sp, const uint32_t* __restrict__ accept,
-              int n_accept, const uint32_t* __restrict__ lev,
-              const uint32_t* __restrict__ sig, int sig_words,
-              uint32_t* __restrict__ out, uint32_t* partial,
-              unsigned* tickets) {
+exact_search_kernel(const int32_t* __restrict__ tiles, int tile_rows,
+                    int nrows, SearchParams sp,
+                    const uint32_t* __restrict__ accept, int n,
+                    const uint32_t* __restrict__ index, int nb, int shift,
+                    uint32_t* __restrict__ out, uint32_t* partial,
+                    unsigned* tickets) {
   extern __shared__ uint32_t s_tab[];
-  const bool use_sig = sig != nullptr;
+  uint32_t* s_idx = s_tab + n;
   const int tid = threadIdx.y * kLanes + threadIdx.x;
-  if (use_sig) {
-    for (int i = tid; i < 7 * kLanes; i += kLanes * kGroups) s_tab[i] = lev[i];
-    for (int i = tid; i < sig_words * kLanes; i += kLanes * kGroups)
-      s_tab[7 * kLanes + i] = sig[i];
-  } else {
-    for (int i = tid; i < n_accept; i += kLanes * kGroups)
-      s_tab[i] = accept[i];
-  }
+  for (int i = tid; i < n; i += kLanes * kGroups) s_tab[i] = accept[i];
+  if (nb > 0)
+    for (int i = tid; i <= nb; i += kLanes * kGroups) s_idx[i] = index[i];
+  __syncthreads();
+  uint32_t acc = 0;
+  for_each_window(tiles, tile_rows, nrows, sp.TL,
+                  [&](int r, const Roll& roll) {
+    const uint64_t u = roll.uni();
+    const uint32_t dim = window_dim(u, sp);
+    int lo = 0, hi = n;
+    if (nb > 0) {
+      // a 64-bit shift: shift may be 32 (one bucket over 32-bit keys)
+      const uint64_t b = static_cast<uint64_t>(dim) >> shift;
+      const bool in = b < static_cast<uint64_t>(nb);
+      lo = in ? static_cast<int>(s_idx[b]) : n;
+      hi = in ? static_cast<int>(s_idx[b + 1]) : n;
+    }
+    bool hit;
+    const int pos = lower_bound(s_tab, lo, hi, dim, hit);
+    if (hit && roll.last_bad < r)
+      acc += window_base(u, sp) | static_cast<uint32_t>(pos);
+  });
+  block_reduce<kSum>(acc, out, partial, tickets);
+}
+
+// The signature form.  Shared memory: the first 7 BFS level rows [7][128]
+// then the signature words [sig_words][128].
+__global__ void __launch_bounds__(kLanes * kGroups)
+sig_search_kernel(const int32_t* __restrict__ tiles, int tile_rows,
+                  int nrows, SearchParams sp,
+                  const uint32_t* __restrict__ lev,
+                  const uint32_t* __restrict__ sig, int sig_words,
+                  uint32_t* __restrict__ out, uint32_t* partial,
+                  unsigned* tickets) {
+  extern __shared__ uint32_t s_tab[];
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  for (int i = tid; i < 7 * kLanes; i += kLanes * kGroups) s_tab[i] = lev[i];
+  for (int i = tid; i < sig_words * kLanes; i += kLanes * kGroups)
+    s_tab[7 * kLanes + i] = sig[i];
   __syncthreads();
   const uint32_t* s_lev = s_tab;
   const uint32_t* s_sig = s_tab + 7 * kLanes;
@@ -328,28 +403,17 @@ search_kernel(const int32_t* __restrict__ tiles, int tile_rows, int nrows,
   for_each_window(tiles, tile_rows, nrows, sp.TL,
                   [&](int r, const Roll& roll) {
     const uint64_t u = roll.uni();
-    const uint32_t dim = static_cast<uint32_t>((u >> sp.dim_shift) &
-                                               sp.dim_mask);
+    const uint32_t dim = window_dim(u, sp);
     uint32_t pos = 0;
     bool hit = false;
-    if (use_sig) {
-      for (int d = 0; d < 7; ++d)
-        pos = 2 * pos + (s_lev[d * kLanes + pos] < dim ? 1u : 0u);
-      const uint32_t dsig = dim & 0xFFFFu;
-      for (int w = 0; w < sig_words; ++w) {
-        const uint32_t word = s_sig[w * kLanes + pos];
-        hit = hit || (word & 0xFFFFu) == dsig || (word >> 16) == dsig;
-      }
-    } else {
-      const int p = lower_bound(s_tab, n_accept, dim);
-      hit = p < n_accept && s_tab[p] == dim;
-      pos = static_cast<uint32_t>(p);
+    for (int d = 0; d < 7; ++d)
+      pos = 2 * pos + (s_lev[d * kLanes + pos] < dim ? 1u : 0u);
+    const uint32_t dsig = dim & 0xFFFFu;
+    for (int w = 0; w < sig_words; ++w) {
+      const uint32_t word = s_sig[w * kLanes + pos];
+      hit = hit || (word & 0xFFFFu) == dsig || (word >> 16) == dsig;
     }
-    const uint64_t top = (u >> sp.top_shift) & sp.outer_mask;
-    const uint64_t right = u & sp.outer_mask;
-    const uint32_t base = static_cast<uint32_t>(
-        ((top << sp.outer_bits) | right) << sp.pf_bits);
-    if (hit && roll.last_bad < r) acc += base | pos;
+    if (hit && roll.last_bad < r) acc += window_base(u, sp) | pos;
   });
   block_reduce<kSum>(acc, out, partial, tickets);
 }
@@ -404,6 +468,20 @@ inline bool parts_ok(int nrows, const void* partial, const void* tickets) {
 }
 
 const dim3 kBlock(kLanes, kGroups);
+
+// Launches `kernel` with `smem` bytes of dynamic shared memory over nb
+// tile blocks of nrows rows (grid_for's grid).
+template <typename K, typename... Args>
+cudaError_t launch_smem(K kernel, size_t smem, int nb, int nrows,
+                        unsigned* tickets, cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid = grid_for(kernel, smem, nb, nrows, tickets != nullptr);
+  kernel<<<grid, kBlock, smem, s>>>(args...);
+  return cudaGetLastError();
+}
 
 template <typename T>
 cudaError_t launch_floor(const void* tiles, int nb, int tile_rows, int row0,
@@ -525,13 +603,17 @@ int mkssd_probe_gather(const void* tiles, int nb, int tile_rows, int nrows,
 
 // The sum over the first nrows window rows of base | pos where the window
 // is kept.  sig == NULL: the exact form, pos = the lower bound of dim in
-// accept[n_accept] and a hit where it is equal.  Otherwise the signature
-// form: pos = the 7-level bucket index through lev's first 7 rows [7][128]
-// and a hit where a 16-bit half of one of sig[sig_words][128]'s words at
-// lane pos equals dim's low 16 bits.  Tables hold u32 bits.
+// accept[n_accept] and a hit where it is equal, searched through the
+// index (u32 [n_buckets + 1], mkssd_member_index's table of accept, with
+// its shift; n_buckets == 0: no index, the whole table is searched).
+// Otherwise the signature form: pos = the 7-level bucket index through
+// lev's first 7 rows [7][128] and a hit where a 16-bit half of one of
+// sig[sig_words][128]'s words at lane pos equals dim's low 16 bits.
+// Tables hold u32 bits.
 int mkssd_probe_search(const void* tiles, int nb, int tile_rows, int nrows,
                        int k, int subk, int drlevel, const void* accept,
-                       int n_accept, const void* lev, const void* sig,
+                       int n_accept, const void* index, int n_buckets,
+                       int shift, const void* lev, const void* sig,
                        int sig_words, void* out, void* partial,
                        void* tickets, void* stream) {
   const int TL = 2 * k;
@@ -540,8 +622,12 @@ int mkssd_probe_search(const void* tiles, int nb, int tile_rows, int nrows,
       4 * subk > 32 || nrows + TL - 1 > tile_rows ||
       !parts_ok(nrows, partial, tickets))
     return cudaErrorInvalidValue;
-  if (sig == nullptr ? (n_accept < 1 || accept == nullptr)
-                     : (lev == nullptr || sig_words < 0))
+  const bool exact = sig == nullptr;
+  if (exact ? (n_accept < 1 || accept == nullptr || n_buckets < 0 ||
+               (n_buckets > 0 &&
+                (index == nullptr || (n_buckets & (n_buckets - 1)) != 0 ||
+                 n_buckets >= n_accept || shift < 0 || shift > 32)))
+            : (lev == nullptr || sig_words < 0))
     return cudaErrorInvalidValue;
   SearchParams sp;
   sp.TL = TL;
@@ -551,23 +637,26 @@ int mkssd_probe_search(const void* tiles, int nb, int tile_rows, int nrows,
   sp.outer_bits = 2 * outctx;
   sp.outer_mask = (1ull << (2 * outctx)) - 1;
   sp.pf_bits = 4 * (subk - drlevel);
-  const size_t words = sig == nullptr
-                           ? static_cast<size_t>(n_accept)
-                           : static_cast<size_t>(7 + sig_words) * kLanes;
-  const size_t smem = words * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid =
-      grid_for(search_kernel, smem, nb, nrows, tickets != nullptr);
-  search_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tiles), tile_rows, nrows, sp,
-      static_cast<const uint32_t*>(accept), n_accept,
-      static_cast<const uint32_t*>(lev), static_cast<const uint32_t*>(sig),
-      sig_words, static_cast<uint32_t*>(out),
-      static_cast<uint32_t*>(partial), static_cast<unsigned*>(tickets));
-  return cudaGetLastError();
+  const int32_t* t = static_cast<const int32_t*>(tiles);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  uint32_t* pt = static_cast<uint32_t*>(partial);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (exact) {
+    const size_t words = static_cast<size_t>(n_accept) +
+                         (n_buckets > 0 ? n_buckets + 1 : 0);
+    return launch_smem(exact_search_kernel, words * sizeof(uint32_t), nb,
+                       nrows, tk, s, t, tile_rows, nrows, sp,
+                       static_cast<const uint32_t*>(accept), n_accept,
+                       static_cast<const uint32_t*>(index), n_buckets, shift,
+                       o, pt, tk);
+  }
+  const size_t words = static_cast<size_t>(7 + sig_words) * kLanes;
+  return launch_smem(sig_search_kernel, words * sizeof(uint32_t), nb, nrows,
+                     tk, s, t, tile_rows, nrows, sp,
+                     static_cast<const uint32_t*>(lev),
+                     static_cast<const uint32_t*>(sig), sig_words, o, pt,
+                     tk);
 }
 
 }  // extern "C"

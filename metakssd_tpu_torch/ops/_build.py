@@ -52,9 +52,10 @@ _SIGNATURES = {
     "mkssd_probe_gather": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P],
     # tiles, nb, tile_rows, nrows, k, subk, drlevel, accept, n_accept,
-    # lev, sig (NULL = exact form), sig_words, out, partial, tickets, stream
-    "mkssd_probe_search": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I,
-                           _P, _P, _P, _P],
+    # index, n_buckets, shift, lev, sig (NULL = exact form), sig_words,
+    # out, partial, tickets, stream
+    "mkssd_probe_search": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I,
+                           _P, _P, _I, _P, _P, _P, _P],
 }
 
 _lib = None

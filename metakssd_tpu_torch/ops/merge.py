@@ -61,21 +61,33 @@ class MemberIndex:
     with ``x >> shift == b`` lies in ``[table[b], table[b + 1]]``; a key
     whose bucket is nb or more is above every key.  ``nb`` is 0 (no
     table: the haystack is one bucket) or a power of two with ``nb + 1 <=
-    nh // 8``, so the table takes at most 1/8 of the haystack's bytes.
+    nh // 8``, so the table takes at most 1/8 of the haystack's bytes; a
+    caller that names its bucket count (the probe's exact search) may take
+    any power of two with ``nb + 1 <= nh``.
     """
     table: torch.Tensor          # int32 [nb + 1] of u32 bits, or [0]
     nb: int
     shift: int
 
 
-def index_shape(nh: int, max_key: int) -> tuple[int, int]:
+def index_shape(nh: int, max_key: int, buckets: int | None = None
+                ) -> tuple[int, int]:
     """(nb, shift) of the index of ``nh`` sorted keys whose largest is
-    ``max_key``: the most buckets the 1/8 budget allows, and the shift
-    that spreads ``[0, max_key]`` over them."""
-    cap = nh // 8
-    if cap < 2:
-        return 0, 0
-    bits = (cap - 1).bit_length() - 1           # 2^bits + 1 <= cap
+    ``max_key``: ``buckets`` buckets where given (a power of two with
+    ``buckets + 1 <= nh``, as ``mkssd_member_index`` takes), else the
+    most the 1/8 budget allows; and the shift that spreads ``[0,
+    max_key]`` over them."""
+    if buckets is None:
+        cap = nh // 8
+        if cap < 2:
+            return 0, 0
+        bits = (cap - 1).bit_length() - 1       # 2^bits + 1 <= cap
+    else:
+        if buckets < 1 or buckets & (buckets - 1) or buckets + 1 > nh:
+            raise ValueError(f"{buckets} buckets: an index of {nh} keys "
+                             "takes a power of two with buckets + 1 <= "
+                             f"{nh}")
+        bits = buckets.bit_length() - 1
     return 1 << bits, max(0, int(max_key).bit_length() - bits)
 
 
@@ -83,10 +95,11 @@ def _max_key(hay: torch.Tensor) -> int:
     return int(hay[-1]) & _U32 if hay.numel() else 0
 
 
-def build_index_plain(hay: torch.Tensor) -> MemberIndex:
+def build_index_plain(hay: torch.Tensor, buckets: int | None = None
+                      ) -> MemberIndex:
     """Plain version of ``mkssd_member_index``: the lower bounds of the
     bucket boundaries, searched in int64 copies of the u32 keys."""
-    nb, shift = index_shape(hay.numel(), _max_key(hay))
+    nb, shift = index_shape(hay.numel(), _max_key(hay), buckets)
     if nb == 0:
         return MemberIndex(hay.new_zeros(0), 0, 0)
     h = hay.to(torch.int64) & _U32
@@ -96,21 +109,23 @@ def build_index_plain(hay: torch.Tensor) -> MemberIndex:
     return MemberIndex(_as_u32_bits(table), nb, shift)
 
 
-def build_index(hay: torch.Tensor, max_key: int | None = None
-                ) -> MemberIndex:
+def build_index(hay: torch.Tensor, max_key: int | None = None,
+                buckets: int | None = None) -> MemberIndex:
     """The index of a sorted haystack on its device: the plain version on
     the CPU, ``mkssd_member_index`` on CUDA (no launch without a table).
     ``max_key``, the haystack's largest key where the caller holds it on
-    the host, spares the read of its last entry (a sync on CUDA)."""
+    the host, spares the read of its last entry (a sync on CUDA);
+    ``buckets`` is ``index_shape``'s."""
     if hay.dtype != torch.int32 or hay.dim() != 1 or not hay.is_contiguous():
         raise ValueError("haystack must be a contiguous 1-D int32 tensor "
                          "of u32 bits")
     if hay.device.type == "cpu":
-        return build_index_plain(hay)
+        return build_index_plain(hay, buckets)
     if hay.device.type != "cuda":
         raise ValueError(f"no index kernel for device {hay.device}")
     nb, shift = index_shape(hay.numel(),
-                            _max_key(hay) if max_key is None else max_key)
+                            _max_key(hay) if max_key is None else max_key,
+                            buckets)
     table = torch.empty(nb + 1 if nb else 0, dtype=torch.int32,
                         device=hay.device)
     if nb:

@@ -14,7 +14,8 @@ kernels (``csrc/probe.cu``) cover every variant:
 * ``gather`` (``mkssd_probe_gather``): ``ng`` chained lookups in a
   4096-entry table or in its first 128 entries, uint32 or uint16;
 * ``search`` (``mkssd_probe_search``): window math plus the exact table
-  search (K1's lower bound) or the signature search of
+  search (the lower bound in the accept table, found through K3's bucket
+  index of it, ``merge.MemberIndex``) or the signature search of
   ``sketch_pallas.py:188-219``, summing ``base | pos`` of kept windows.
 
 Each wrapper runs its plain PyTorch version when the tiles lie on the CPU,
@@ -33,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from metakssd_tpu_torch.ops import merge
 from metakssd_tpu_torch.ops.sketch_cuda import LAUNCHES, _as_u32_bits, \
     _raise_on
 
@@ -87,6 +89,22 @@ def tiles_from_codes(codes: torch.Tensor, rwin: int, ext: int,
                         c[rwin:M + rwin].view(S, rwin)[:, :ext]], dim=1)
     return strips.view(S // LANES, LANES, rwin + ext).transpose(1, 2) \
         .contiguous()
+
+
+def exact_buckets(n: int) -> int | None:
+    """The bucket count of the exact search's index over ``n`` accept
+    keys: the most that K3's index kernel takes (nb + 1 <= n; 2048 for
+    4096 keys, about 2 keys a bucket), which searched faster on the H100
+    than K3's own 1/8 rule (256, about 16; PERF.md section 6).  None (K3's
+    rule: no index) below 2 keys."""
+    return 1 << ((n - 1).bit_length() - 1) if n >= 2 else None
+
+
+def exact_index(accept: torch.Tensor) -> merge.MemberIndex:
+    """K3's index of the sorted accept table (u32 bits in int32) on its
+    device, at ``exact_buckets``: built once per table, then passed to
+    every ``search`` on it."""
+    return merge.build_index(accept, buckets=exact_buckets(accept.numel()))
 
 
 def bfs_levels(accept_tups: np.ndarray) -> np.ndarray:
@@ -335,12 +353,44 @@ def gather(tiles: torch.Tensor, nrows: int, table: torch.Tensor, size: int,
     return out
 
 
+def _check_index(index: merge.MemberIndex, accept: torch.Tensor | None,
+                 sig: torch.Tensor | None, tiles: torch.Tensor) -> None:
+    """Raises unless ``index`` can be the exact search's index of
+    ``accept`` for these tiles: the table's size, type and device, and a
+    bucket count ``mkssd_probe_search`` takes."""
+    if sig is not None or accept is None:
+        raise ValueError("search: an index goes with the exact form's "
+                         "accept table")
+    t = index.table
+    if t.device != tiles.device or t.device != accept.device \
+            or t.dtype != torch.int32 or t.dim() != 1 \
+            or not t.is_contiguous():
+        raise ValueError(f"search: the index table ({t.dtype} on "
+                         f"{t.device}) must be contiguous int32 on the "
+                         f"tiles' device {tiles.device}")
+    nb = index.nb
+    if t.numel() != (nb + 1 if nb else 0):
+        raise ValueError(f"search: an index of {nb} buckets holds "
+                         f"{nb + 1 if nb else 0} entries, not {t.numel()}")
+    if nb and (nb & (nb - 1) or nb + 1 > accept.numel()) \
+            or not 0 <= index.shift <= 32:
+        raise ValueError(f"search: no index of {nb} buckets, shift "
+                         f"{index.shift} over {accept.numel()} keys")
+
+
 def search(tiles: torch.Tensor, nrows: int, k: int, subk: int, drlevel: int,
            accept: torch.Tensor | None = None, lev: torch.Tensor | None = None,
-           sig: torch.Tensor | None = None) -> torch.Tensor:
+           sig: torch.Tensor | None = None,
+           index: merge.MemberIndex | None = None) -> torch.Tensor:
     """Window math + table search over int32 tiles: exact with the sorted
     ``accept`` table, or the signature form with the BFS levels ``lev``
-    and the signature words ``sig`` (all u32 bits in int32)."""
+    and the signature words ``sig`` (all u32 bits in int32).  ``index``
+    is ``exact_index(accept)``, checked on every device; on CUDA the exact
+    form without one builds it first (set-up, counted as
+    ``LAUNCHES["member_index"]``: a read of the table's last key, so not
+    inside a CUDA graph's capture)."""
+    if index is not None:
+        _check_index(index, accept, sig, tiles)
     if tiles.device.type == "cpu":
         return search_plain(tiles, nrows, k, subk, drlevel, accept, lev, sig)
     lib, stream = _cuda(tiles, "search")
@@ -348,6 +398,8 @@ def search(tiles: torch.Tensor, nrows: int, k: int, subk: int, drlevel: int,
         raise ValueError(f"search: no kernel for {tiles.dtype} tiles")
     if sig is None:
         _table(accept, tiles, "search")
+        if index is None:
+            index = exact_index(accept)
     else:
         _table(lev, tiles, "search")
         _table(sig, tiles, "search")
@@ -360,6 +412,9 @@ def search(tiles: torch.Tensor, nrows: int, k: int, subk: int, drlevel: int,
         tiles.data_ptr(), tiles.shape[0], tiles.shape[1], nrows, k, subk,
         drlevel, None if accept is None else accept.data_ptr(),
         0 if accept is None else accept.numel(),
+        None if index is None or index.nb == 0 else index.table.data_ptr(),
+        0 if index is None else index.nb,
+        0 if index is None else index.shift,
         None if lev is None else lev.data_ptr(),
         None if sig is None else sig.data_ptr(),
         0 if sig is None else sig.shape[0], out.data_ptr(), _ptr(partial),

@@ -59,7 +59,12 @@ STEP_OPS = 4            # one search step: load, compare, select, index
 
 def search_ops(steps: int, extra: int = 0) -> int:
     """32-bit operations per window of the window math and a search of
-    ``steps`` dependent steps, plus ``extra``."""
+    ``steps`` dependent steps, plus ``extra``.  The exact search's bound
+    counts one step (``search_ops(1)``): a bucket index of the table takes
+    a window to its lower bound in about one step, so a binary search of
+    the whole table (12 steps for 4096 keys) is not the function's least
+    work.  The signature search keeps its 7 steps: it computes another
+    function (a 16-bit signature hit at a 7-level bucket)."""
     return WINDOW_OPS + SEARCH_OPS + STEP_OPS * steps + extra
 
 

@@ -18,7 +18,7 @@ import torch
 from metakssd_tpu_torch import dist, pipeline
 from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.formats.shuf import make_shuf
-from metakssd_tpu_torch.ops import merge, sketch_cuda
+from metakssd_tpu_torch.ops import merge, probe, sketch_cuda
 from metakssd_tpu_torch.params import SketchParams
 
 pytestmark = pytest.mark.cuda
@@ -184,22 +184,38 @@ def _index_hay(name: str) -> np.ndarray:
     return np.zeros(0, np.uint32)
 
 
+@pytest.mark.parametrize("buckets", [None, 2048, "densest"])
 @pytest.mark.parametrize("name", INDEX_CASES)
-def test_index_kernel_matches_plain(cuda, name):
+def test_index_kernel_matches_plain(cuda, name, buckets):
     """mkssd_member_index equals build_index_plain and numpy's lower
-    bounds of the bucket boundaries; one launch where there is a table,
-    none below 16 keys."""
+    bounds of the bucket boundaries, at K3's rule (no table below 16
+    keys), at 2048 buckets (the probe's exact search on 4096 keys; a
+    haystack under 2049 keys refuses it) and at the densest count each
+    haystack takes (``probe.exact_buckets``); one launch where there is
+    a table."""
     hay = _index_hay(name)
     h = merge.u32_tensor(hay).to(cuda)
+    if buckets == "densest":
+        buckets = probe.exact_buckets(hay.size)
     sketch_cuda.reset_launches()
-    ix = merge.build_index(h)
+    if buckets is not None and buckets + 1 > hay.size:
+        with pytest.raises(ValueError, match="buckets"):
+            merge.build_index(h, buckets=buckets)
+        with pytest.raises(ValueError, match="buckets"):
+            merge.build_index_plain(h, buckets)
+        assert sketch_cuda.LAUNCHES["member_index"] == 0
+        return
+    ix = merge.build_index(h, buckets=buckets)
     torch.cuda.synchronize()
     assert sketch_cuda.LAUNCHES["member_index"] == (1 if ix.nb else 0)
     assert sketch_cuda.LAUNCHES["member"] == 0
-    plain = merge.build_index_plain(h)
+    plain = merge.build_index_plain(h, buckets)
     assert (ix.nb, ix.shift) == (plain.nb, plain.shift)
     assert torch.equal(ix.table, plain.table)
-    assert (ix.nb == 0) == (hay.size < 16)
+    if buckets is None:
+        assert (ix.nb == 0) == (hay.size < 16)
+    else:
+        assert ix.nb == buckets
     if ix.nb:
         bounds = np.arange(ix.nb, dtype=np.uint64) << np.uint64(ix.shift)
         want = np.append(np.searchsorted(hay.astype(np.uint64), bounds),

@@ -104,6 +104,141 @@ def test_index_matches_searchsorted(name):
         assert sizes.mean() <= 16
 
 
+# The probe's exact search (csrc/probe.cu exact_search_kernel) takes K3's
+# index of an accept table at a bucket count of its own choosing: every
+# power of two with nb + 1 <= n, besides K3's 1/8 rule.
+ACCEPT_CASES = ["L3K11", "k5s3l1", "k8s5l2", "skewed", "few_keys", "ends",
+                "low_keys"]
+SAMPLED_DIMS = 1 << 18             # dims drawn where the domain is larger
+
+
+def _accept_case(name: str):
+    """(sorted distinct u32 keys, 4 * subk: the bits of a dim)."""
+    cfg = {"L3K11": (11, 6, 3), "k5s3l1": (5, 3, 1), "k8s5l2": (8, 5, 2)}
+    if name in cfg:
+        p = SketchParams(*cfg[name])
+        return make_shuf(p, seed=1234).device_tables()[0], 4 * p.subk
+    rng = np.random.default_rng(ACCEPT_CASES.index(name) + 500)
+    if name == "skewed":              # 3000 keys in one 2^12 bucket range
+        return np.unique(np.concatenate([
+            _u32(rng, 5 << 12, 6 << 12, 3000),
+            _u32(rng, 0, 1 << 24, 1000)])), 24
+    if name == "few_keys":            # under 16 keys: K3's rule gives nb 0
+        return np.unique(_u32(rng, 0, 1 << 24, 11)), 24
+    if name == "low_keys":            # every key below 2^22 of 2^24 dims:
+        # the top dims fall in buckets at or past nb, above every key
+        return np.unique(_u32(rng, 0, 1 << 22, 3000)), 24
+    top = (1 << 24) - 1               # the domain's both ends as keys
+    return np.unique(np.concatenate([[0, top],
+                                     _u32(rng, 1, top, 3000)])), 24
+
+
+def _dims(keys: np.ndarray, bits: int) -> np.ndarray:
+    """Every dim of [0, 2^bits), or a sample with the keys, their
+    neighbours and both ends."""
+    if bits <= 20:
+        return np.arange(1 << bits, dtype=np.int64)
+    rng = np.random.default_rng(bits)
+    k = keys.astype(np.int64)
+    d = np.concatenate([rng.integers(0, 1 << bits, SAMPLED_DIMS), k, k - 1,
+                        k + 1, [0, (1 << bits) - 1]])
+    return np.unique(d[(d >= 0) & (d < 1 << bits)])
+
+
+def _bucket_counts(n: int) -> list:
+    """K3's rule (None), then every power of two with nb + 1 <= n."""
+    return [None] + [1 << i for i in range(32) if (1 << i) + 1 <= n]
+
+
+def _kernel_search(keys: np.ndarray, ix, dims: np.ndarray):
+    """The exact search kernel's steps in numpy, every dim in lockstep:
+    the bucket's range from the index (b >= nb: [n, n); nb == 0: the
+    whole table), then K3's halving step over it, no read of an empty
+    range, and a hit where the last key read at or above the dim equals
+    it.  Returns (pos, hit)."""
+    n = keys.size
+    k = keys.astype(np.int64)
+    if ix.nb == 0:
+        lo, hi = np.zeros_like(dims), np.full_like(dims, n)
+    else:
+        t = ix.table.numpy().view(np.uint32).astype(np.int64)
+        b = dims >> ix.shift
+        inside = b < ix.nb
+        bc = np.minimum(b, ix.nb - 1)
+        lo, hi = np.where(inside, t[bc], n), np.where(inside, t[bc + 1], n)
+    base, length, ku = lo.copy(), hi - lo, np.full_like(dims, -1)
+    while (length > 0).any():
+        live = length > 0
+        half = length >> 1
+        key = k[np.minimum(base + half, n - 1)]
+        lt = key < dims
+        base = np.where(live & lt, base + half + 1, base)
+        length = np.where(live, np.where(lt, length - half - 1, half),
+                          length)
+        ku = np.where(live & ~lt, key, ku)
+    return base, ku == dims
+
+
+@pytest.mark.parametrize("name", ACCEPT_CASES)
+def test_index_contract_on_accept_tables(name):
+    """For each dim, table[b] <= lower_bound(dim) <= table[b + 1] where b
+    = dim >> shift is below nb, and lower_bound(dim) == n where it is not,
+    at K3's rule and at every power-of-two bucket count the index kernel
+    takes; and the kernel's search through each index gives numpy's lower
+    bound and hit.  The shift puts the largest key in the last bucket."""
+    keys, bits = _accept_case(name)
+    n = keys.size
+    dims = _dims(keys, bits)
+    k = keys.astype(np.int64)
+    lb = np.searchsorted(k, dims)
+    want_hit = (lb < n) & (k[np.minimum(lb, n - 1)] == dims)
+    counts = _bucket_counts(n)
+    if name == "L3K11":
+        assert n == 4096 and counts[-1] == 2048
+    for buckets in counts:
+        ix = merge.build_index_plain(merge.u32_tensor(keys), buckets)
+        if buckets is None:
+            assert ix.nb == merge.index_shape(n, int(keys[-1]))[0]
+            assert (ix.nb == 0) == (n < 16)
+        else:
+            assert ix.nb == buckets
+        if ix.nb:
+            t = ix.table.numpy().view(np.uint32).astype(np.int64)
+            assert t.size == ix.nb + 1 and t[-1] == n
+            assert (int(keys[-1]) >> ix.shift) < ix.nb
+            b = dims >> ix.shift
+            inside = b < ix.nb
+            assert (lb[~inside] == n).all(), (name, buckets)
+            if name == "low_keys":    # dims whose bucket is nb or more
+                assert (~inside).any(), buckets
+            bi = b[inside]
+            assert (t[bi] <= lb[inside]).all(), (name, buckets)
+            assert (lb[inside] <= t[bi + 1]).all(), (name, buckets)
+        pos, hit = _kernel_search(keys, ix, dims)
+        np.testing.assert_array_equal(pos, lb, err_msg=f"{name} {buckets}")
+        np.testing.assert_array_equal(hit, want_hit,
+                                      err_msg=f"{name} {buckets}")
+    if name == "skewed":              # one bucket holds most keys
+        t = merge.build_index_plain(merge.u32_tensor(keys)).table.numpy()
+        assert np.diff(t.view(np.uint32).astype(np.int64)).max() > n // 2
+    if name == "ends":
+        assert keys[0] == 0 and keys[-1] == (1 << bits) - 1
+
+
+@pytest.mark.parametrize("buckets", [0, 3, 6, 2047, 4096, 8192, -2])
+def test_index_shape_rejects_bucket_counts(buckets):
+    """A bucket count must be a power of two with nb + 1 <= nh; K3's rule
+    and the counts that fit are taken."""
+    with pytest.raises(ValueError, match="buckets"):
+        merge.index_shape(4096, (1 << 24) - 1, buckets)
+    with pytest.raises(ValueError, match="buckets"):
+        merge.build_index_plain(merge.u32_tensor(np.arange(4096)), buckets)
+    assert merge.index_shape(4096, (1 << 24) - 1) == (256, 16)
+    assert merge.index_shape(4096, (1 << 24) - 1, 2048) == (2048, 13)
+    assert merge.index_shape(4096, (1 << 24) - 1, 1) == (1, 24)
+    assert merge.index_shape(2, 5, 1) == (1, 3)
+
+
 HAY = 40_000
 MEMBER_CASES = ["sorted", "high_keys", "dist_runs", "set_runs", "unsorted",
                 "duplicates", "clustered", "all_ones", "small_hay",

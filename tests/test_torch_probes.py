@@ -11,6 +11,7 @@ whose ``pl.pallas_call`` interprets, so the files' module-level code
 """
 
 import ast
+import dataclasses
 import functools
 import os
 import types
@@ -252,6 +253,54 @@ def test_library_calls_equal_the_floors():
             if v.library is not None:
                 assert torch.equal(v.library(v.tiles), v.run(v.tiles)), \
                     v.name
+
+
+def _exact_inputs():
+    """Small tiles and the L3K11 accept table, on the CPU."""
+    v = _by_name(probe_kernel_cost.variants("cpu", nwin=NWIN))[
+        probe_kernel_cost.EXACT]
+    return v.tiles, v.tables["accept"]
+
+
+def test_search_checks_its_index():
+    """The exact search's index is checked before any dispatch, so on the
+    CPU too: a table of another size than nb + 1, on another device or of
+    another type, a bucket count the kernel does not take, or an index
+    beside the signature form raises; the right one gives the plain
+    result."""
+    tiles, accept = _exact_inputs()
+    ix = probe.exact_index(accept)
+    assert ix.nb == 2048 and ix.table.numel() == 2049
+    args = (tiles, 8, 11, 6, 3)
+    want = probe.search_plain(*args, accept=accept)
+    assert torch.equal(probe.search(*args, accept=accept, index=ix), want)
+    assert torch.equal(probe.search(*args, accept=accept), want)
+    bad = {
+        "size": dataclasses.replace(ix, table=ix.table[:-1].contiguous()),
+        "device": dataclasses.replace(ix, table=ix.table.to("meta")),
+        "dtype": dataclasses.replace(ix, table=ix.table.to(torch.int64)),
+        "buckets": dataclasses.replace(
+            ix, nb=4096, table=torch.zeros(4097, dtype=torch.int32)),
+        "shift": dataclasses.replace(ix, shift=33),
+    }
+    for b in bad.values():
+        with pytest.raises(ValueError, match="search"):
+            probe.search(*args, accept=accept, index=b)
+    lev = torch.from_numpy(probe.bfs_levels(
+        accept.numpy().view(np.uint32)).view(np.int32))
+    with pytest.raises(ValueError, match="exact form"):
+        probe.search(*args, lev=lev, sig=lev, index=ix)
+
+
+@pytest.mark.parametrize("n,nb", [(4096, 2048), (4097, 4096), (11, 8),
+                                  (2, 1), (1, 0)])
+def test_exact_index_is_the_densest(n, nb):
+    """The exact search's index takes the most buckets with nb + 1 <= n
+    (K3's 1/8 rule would give 256 for 4096 keys and none below 16)."""
+    keys = torch.arange(0, 7 * n, 7, dtype=torch.int32)
+    ix = probe.exact_index(keys)
+    assert ix.nb == nb
+    assert ix.table.numel() == (nb + 1 if nb else 0)
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from metakssd_tpu_torch.formats.shuf import make_shuf
-from metakssd_tpu_torch.ops import probe, sketch_cuda
+from metakssd_tpu_torch.ops import merge, probe, sketch_cuda
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.probes import (probe_floor_chunk, probe_floor_noread,
                                        probe_kernel_cost, probe_r4)
@@ -104,26 +104,83 @@ def test_gather_tables(cuda, size, mult, u16):
                            probe.gather_plain(tiles, 139, tab, size, mult, ng))
 
 
-@pytest.mark.parametrize("cfg", [(11, 6, 3), (5, 3, 1), (8, 5, 2)])
-@pytest.mark.parametrize("use_sig", [False, True])
-def test_search_configs(cuda, cfg, use_sig):
-    """Exact and signature search at three configs, one of which keeps a
-    window in 16, on tiles with invalid codes."""
-    p = SketchParams(*cfg)
+def _window_dims(tiles: torch.Tensor, nrows: int, p) -> np.ndarray:
+    """The distinct dims of the valid windows of the first nrows rows."""
+    hi, lo, invalid = probe._tuples(tiles.cpu(), nrows, p.kmer_len)
+    outctx = p.k - p.subk
+    dim = ((hi << 32 | lo) >> (2 * outctx)) & ((1 << (4 * p.subk)) - 1)
+    return np.unique(dim[~invalid].numpy())
+
+
+def _accept_table(p, table: str, seen: np.ndarray) -> np.ndarray:
+    """The config's accept table, or a sorted table over its dims that
+    holds 0, the largest dim and some of the tiles' window dims ``seen``:
+    with most keys in one bucket of K3's index ("skewed"), or 11 keys,
+    below K3's 16 ("few"); or 301 keys all below half the largest dim
+    ("low"), so that the windows above them take buckets past nb."""
     a_tups = make_shuf(p, seed=7).device_tables()[0]
-    TL = p.kmer_len
+    if table == "shuffle":
+        return a_tups
+    top = (1 << (4 * p.subk)) - 1
+    rng = np.random.default_rng(9)
+    if table == "low":
+        keys = rng.choice(seen[seen <= top >> 1], 300, replace=False)
+        return np.unique(np.append(keys, 0).astype(np.uint32))
+    keys = rng.choice(seen, 9 if table == "few" else 500, replace=False)
+    if table == "skewed":         # a dense run of dims in one bucket
+        lo = int(seen[seen.size // 2]) & ~0xFFF
+        keys = np.concatenate([keys, np.arange(lo, min(lo + 3000, top))])
+    return np.unique(np.concatenate([keys, [0, top]]).astype(np.uint32))
+
+
+@pytest.mark.parametrize("cfg", [(11, 6, 3), (5, 3, 1), (8, 5, 2)])
+@pytest.mark.parametrize("form", ["sig", "exact", "exact densest",
+                                  "exact k3", "skewed densest", "skewed k3",
+                                  "few densest", "few k3", "low densest",
+                                  "low k3"])
+def test_search_configs(cuda, cfg, form):
+    """Exact and signature search at three configs, one of which keeps a
+    window in 16, on tiles with invalid codes.  The exact form runs
+    without an index (the wrapper builds one) and with one built at each
+    density, on the config's accept table, on a skewed one (a run of 3000
+    dims in one bucket), on one of 11 keys and on one whose keys all lie
+    below half the dims (windows past its last bucket), those three
+    holding some of the tiles' window dims; each equals the plain
+    version, and a call with an index launches the search alone."""
+    p = SketchParams(*cfg)
+    table, _, density = form.partition(" ")
     rng = np.random.default_rng(8)
-    tiles = torch.from_numpy(rng.integers(0, 5, (3, 256 + TL, 128))
+    tiles = torch.from_numpy(rng.integers(0, 5, (3, 256 + p.kmer_len, 128))
                              .astype(np.int32)).to(cuda)
-    if use_sig:
+    dims = _window_dims(tiles, 250, p)
+    a_tups = _accept_table(p, "shuffle" if table in ("sig", "exact")
+                           else table, dims)
+    if table == "sig":
         kw = {"lev": torch.from_numpy(probe.bfs_levels(a_tups)
                                       .view(np.int32)).to(cuda),
               "sig": torch.from_numpy(np.ascontiguousarray(
                   probe.sig_tables(a_tups)).view(np.int32)).to(cuda)}
     else:
         kw = {"accept": torch.from_numpy(a_tups.view(np.int32)).to(cuda)}
+        if density:
+            kw["index"] = probe.exact_index(kw["accept"]) \
+                if density == "densest" else merge.build_index(kw["accept"])
+    want = probe.search_plain(tiles, 250, *cfg,
+                              **{k: v for k, v in kw.items()
+                                 if k != "index"})
+    before = dict(sketch_cuda.LAUNCHES)
     got = probe.search(tiles, 250, *cfg, **kw)
-    assert torch.equal(got, probe.search_plain(tiles, 250, *cfg, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), form
+    assert sketch_cuda.LAUNCHES["probe_search"] == \
+        before["probe_search"] + 1
+    built = sketch_cuda.LAUNCHES["member_index"] - before["member_index"]
+    assert built == (table == "exact" and not density), form
+    if table in ("skewed", "few", "low"):
+        assert (want != 0).any(), "no window hit the table"
+    if table == "low":            # the kernel's b >= nb branch ran
+        ix = kw["index"]
+        assert ix.nb and ((dims >> ix.shift) >= ix.nb).any(), form
 
 
 @pytest.mark.parametrize("nb,rows", [(40, 100), (40, 1000), (600, 300),
