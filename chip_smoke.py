@@ -30,12 +30,17 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    (a clustered haystack whose first bucket holds 100K keys and whose
    needle blocks span more than the staged window; unsorted needles; 1,
    100, 2047 and 0 needles; an empty and a 15-key haystack, which have
-   no index table; 0xFFFFFFFF present and absent), then the three shapes
+   no index table; 0xFFFFFFFF present and absent), then the four shapes
    of ``probes/bench_member.py``: ``4M x 1M`` (1M sorted needles against
    about 4.19M distinct random u32 keys, half hits), ``dist batch`` (128
    sorted runs of 4096 needles against the same keys: one component of
-   ``dist -r``) and ``set -s`` (65,600 sorted runs of 1,024 ids, 94%
-   hits, against 19.7M keys: the set leg's ``-s`` call).  At each shape
+   ``dist -r``), ``set -s`` (65,600 sorted runs of 1,024 ids, 94%
+   hits, against 19.7M keys: the set leg's ``-s`` call) and ``profile
+   match`` (5,636 sorted ids, nearly all hits, against 249,105 keys: the
+   call of ``profile --shard-db 1``).  K3 runs every case and shape by
+   its rule's launch and by each of its two launches (blocks of 1024
+   needles; a group of 16 lanes a needle), each equal to the plain
+   version, and prints which launch the rule took.  At each shape
    K3 must also equal the indexed formulation in plain torch and the
    index kernel ``build_index_plain``; prints K3's time (replayed from a
    CUDA graph, and between CUDA events over back-to-back calls) beside
@@ -168,7 +173,9 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    plain version's.  P1's exact search runs through K3's index of its
    accept table (built once, before the path: one index launch), held
    against ``build_index_plain`` at the same bucket count; its line
-   prints the index's nb, shift and largest bucket;
+   prints the index's nb, shift and largest bucket.  Then the least time
+   of a kernel replayed from a graph (the floor kernel's block-index op
+   on one block, no read), printed beside P4's noread and touch8;
 8b. bench: ``python -m metakssd_tpu_torch.bench`` (the root bench.py's
    legs: sketch reads/s on the card and the CPU, ``kernel_chain_mwin``,
    profile latency, abv q/s sparse and dense, e2e profile cold and
@@ -654,30 +661,35 @@ def _member_cases(seed: int):
 
 def _k3_vs_plain(name, h, vals, nd, index) -> int:
     """K3 (through ``index``, or building one) against member_plain in
-    identity mode and, where ``vals`` are given, values mode, and against
+    identity mode and, where ``vals`` are given, values mode, by the
+    launch its rule takes and by each of its two launches, and against
     the indexed formulation in plain torch; returns the max value error
     and checks the hits."""
     import torch
     from metakssd_tpu_torch.ops import merge
     err = 0
     for v in (None,) if vals is None else (None, vals):
-        m, val = merge.member(h, v, nd, index)
         pm, pv = merge.member_plain(h, v, nd)
-        torch.cuda.synchronize()
-        check(torch.equal(m, pm), f"K3 {name}: member differs from plain")
-        if nd.numel():
-            err = max(err, int(((val.long() & ALL_ONES)
-                                - (pv.long() & ALL_ONES)).abs().max()
-                               .item()))
-        check(torch.equal(val, pv), f"K3 {name}: value differs")
         if index is not None:
             im, iv = merge.member_indexed_plain(h, v, nd, index)
-            check(torch.equal(m, im) and torch.equal(val, iv),
-                   f"K3 {name}: differs from the indexed plain version")
+            check(torch.equal(pm, im) and torch.equal(pv, iv),
+                   f"K3 {name}: the indexed plain version differs")
+        for launch in (None, *merge.K3_LAUNCH_CODES):
+            m, val = merge.member(h, v, nd, index, launch)
+            torch.cuda.synchronize()
+            what = f"K3 {name} ({launch or 'by the rule'})"
+            check(torch.equal(m, pm), f"{what}: member differs from plain")
+            if nd.numel():
+                err = max(err, int(((val.long() & ALL_ONES)
+                                    - (pv.long() & ALL_ONES)).abs().max()
+                                   .item()))
+            check(torch.equal(val, pv), f"{what}: value differs")
         del pm, pv
     hits = int(m.sum().item())
     print(f"  K3 {name:18s} haystack {h.numel():9d} needles "
-          f"{nd.numel():9d} members {hits:9d} == plain", flush=True)
+          f"{nd.numel():9d} members {hits:9d} == plain (launch by the "
+          f"rule: {merge.member_launch(nd.numel())}; both launches)",
+          flush=True)
     return err
 
 
@@ -705,11 +717,12 @@ def _k3_ops(x64, index, nh: int) -> int:
 
 def phase_member(seed: int) -> dict:
     """K3 and its index build against their plain versions on the card,
-    in identity and values mode: the edge cases, then the three shapes of
-    ``probes/bench_member.py`` (``4M x 1M``, ``dist batch``, ``set -s``),
-    each timed beside its plain version, ``torch.searchsorted`` and its
-    bound.  Returns the max value error of K3 and of its index and the
-    per-shape records."""
+    in identity and values mode, through each of K3's two launches: the
+    edge cases, then the four shapes of ``probes/bench_member.py`` (``4M
+    x 1M``, ``dist batch``, ``set -s``, ``profile match``), each timed
+    beside its plain version, ``torch.searchsorted`` and its bound.
+    Returns the max value error of K3 and of its index and the per-shape
+    records."""
     import numpy as np
     import torch
     from metakssd_tpu_torch.ops import merge
@@ -932,6 +945,7 @@ def _k3_record(name: str, h, x, ix, v=None) -> dict:
     from metakssd_tpu_torch.probes.bench_member import time_ms
     h64, x64 = h.long() & ALL_ONES, x.long() & ALL_ONES
     rec = {"shape": name, "nh": h.numel(), "nn": x.numel(),
+           "launch": merge.member_launch(x.numel()),
            "k3_ms": bench_member.graph_ms(lambda: merge.member(h, v, x, ix)),
            "k3_events_ms": time_ms(lambda: merge.member(h, v, x, ix), 20),
            "plain_ms": time_ms(lambda: merge.member_plain(h, v, x), 5),
@@ -944,7 +958,8 @@ def _k3_record(name: str, h, x, ix, v=None) -> dict:
     rec["bound_ms"], rec["bound_by"] = _bound(hay_bytes + 12 * rec["nn"],
                                               rec["ops"])
     print(f"  K3 {name}: {rec['nh']} x {rec['nn']}  K3 {rec['k3_ms']:.4f} "
-          f"ms (graph replay; back-to-back calls {rec['k3_events_ms']:.4f})"
+          f"ms ({rec['launch']} launch; graph replay; back-to-back calls "
+          f"{rec['k3_events_ms']:.4f})"
           f"  plain {rec['plain_ms']:.4f}  torch.searchsorted "
           f"{rec['library_ms']:.4f} (back to back "
           f"{rec['library_events_ms']:.4f})  bound {rec['bound_ms']:.4f} "
@@ -1080,6 +1095,12 @@ def phase_stage1_flags(work: str, seed: int, sres: dict) -> dict:
           f"K3 and its index must launch once per component ({len(comps)})"
           f" in profile --shard-db 1: {sd_launches}")
     calls = {f"c{c}": (index[0][c].nk, int(qry.ids[c].size)) for c in comps}
+    groups = sum(merge.member_launch(n) == "groups"
+                 for _, n in calls.values())
+    check(sd_launches["member_groups"] == groups,
+          f"K3's groups launch must take the {groups} calls of at most "
+          f"{merge.GROUPS_MAX_NEEDLES} ids in profile --shard-db 1: "
+          f"{sd_launches}")
     print("  profile --shard-db 1 K3 calls (haystack x needles): "
           + ", ".join(f"{k} {h} x {n}" for k, (h, n) in calls.items())
           + "; TSVs byte-identical to phase 4's profile", flush=True)
@@ -1299,10 +1320,16 @@ def phase_mesh(work: str, sres: dict, qres: dict) -> dict:
             "--device", "cuda", fq])
     _same_files(sd, sres["profile"], PROFILE_TSVS, "profile --shard-db 4")
     got = launches["profile --shard-db 4"]
+    # each shard's call takes the component's ids: the groups launch where
+    # they are few enough
+    groups = MESH * sum(merge.member_launch(int(qry.ids[c].size)) == "groups"
+                        for c in comps)
     check(got["member"] == MESH * len(comps)
-          and got["member_index"] == MESH * len(comps),
+          and got["member_index"] == MESH * len(comps)
+          and got["member_groups"] == groups,
           f"K3 and its index must launch once per shard and component "
-          f"({MESH} x {len(comps)}): {got}")
+          f"({MESH} x {len(comps)}), K3's groups launch {groups} times: "
+          f"{got}")
     tsv = os.path.join(work, "mesh_composite.tsv")
     secs["composite --shard-db 4"], launches["composite --shard-db 4"] = \
         _mesh_launches("composite -q --shard-db 4", [
@@ -1314,7 +1341,8 @@ def phase_mesh(work: str, sres: dict, qres: dict) -> dict:
         check(text and text == b.read(), "composite -q --shard-db 4 differs "
                                          "from phase 4's species coverage")
     got = launches["composite --shard-db 4"]
-    check(got["member"] == MESH * len(comps),
+    check(got["member"] == MESH * len(comps)
+          and got["member_groups"] == groups,
           f"K3 in composite --shard-db 4: {got}")
     index = [v for k, v in composite._INDEX_CACHE.items()
              if k[0] == os.path.abspath(db) and k[3] == MESH]
@@ -1997,6 +2025,20 @@ def phase_probes() -> tuple[list, dict, int]:
         out.append(rec)
         del got, want
     del runs
+    # what a kernel replayed from a graph takes at the least: the floor
+    # kernel's block-index op on one block, which reads nothing; P4's
+    # noread and touch8 sit at it, far above their byte bounds
+    tiny = vary(torch.zeros((1, 1, probe.LANES), dtype=torch.int32,
+                            device="cuda"))
+    noop = [graph_ms(lambda x: probe.floor(x, 0, 1, "none"), tiny, 5)
+            for _ in range(PROBE_REPLAYS)]
+    noop_ms = statistics.median(noop)
+    print(f"  launch floor: one block writing its index, {noop_ms:.4f} ms "
+          f"from a CUDA graph ({min(noop):.4f}-{max(noop):.4f}), beside "
+          "P4 noread and touch8", flush=True)
+    for rec in out:
+        if rec["name"].endswith((": noread", ": touch8")):
+            rec["launch_floor_ms"] = noop_ms
     torch.cuda.empty_cache()
     return out, launches, index_err
 
@@ -2240,9 +2282,17 @@ def main(argv=None) -> int:
     def by_leg(legs, name):
         return {leg: n[name] for leg, n in legs.items()}
     shapes = [{k: r[k] for k in (
-        "shape", "nh", "nn", "ops", "k3_ms", "k3_events_ms", "plain_ms",
-        "library_ms", "library_events_ms", "bound_ms", "bound_by")}
+        "shape", "nh", "nn", "launch", "ops", "k3_ms", "k3_events_ms",
+        "plain_ms", "library_ms", "library_events_ms", "bound_ms",
+        "bound_by")}
         for r in mres["shapes"] + [fres["k3"]] + meshres["k3"]]
+    set_s = next(r for r in mres["shapes"] if r["shape"] == "set -s")
+    # both of K3's launches ran on the main path: the groups launch takes
+    # the --shard-db profile matches, the blocks launch the rest
+    groups_launches = sum(by_leg(k3_legs, "member_groups").values())
+    check(0 < groups_launches < sum(by_leg(k3_legs, "member").values()),
+          f"K3's groups launch ran {groups_launches} times on the main "
+          f"path: {by_leg(k3_legs, 'member_groups')}")
     print(json.dumps({"kernels": [
         {"name": "sketch_compact (K1)", "route": "cuda",
          "source": "metakssd_tpu_torch/csrc/sketch.cu",
@@ -2265,6 +2315,8 @@ def main(argv=None) -> int:
          "replaces": "metakssd_tpu/ops/merge_device.py:29",
          "launches": sum(by_leg(k3_legs, "member").values()),
          "launches_by_leg": by_leg(k3_legs, "member"),
+         "groups_launches": groups_launches,
+         "groups_launches_by_leg": by_leg(k3_legs, "member_groups"),
          "max_abs_err": max(mres["err"], fres["k3"]["err"],
                             meshres["err"]),
          "ms": k3["k3_ms"], "plain_ms": k3["plain_ms"],
@@ -2280,11 +2332,10 @@ def main(argv=None) -> int:
          "launches": sum(by_leg(index_legs, "member_index").values()),
          "launches_by_leg": by_leg(index_legs, "member_index"),
          "max_abs_err": max(mres["index_err"], probe_index_err),
-         "ms": mres["shapes"][-1]["index_ms"],
-         "plain_ms": mres["shapes"][-1]["index_plain_ms"],
-         "bound_ms": mres["shapes"][-1]["index_bound_ms"],
-         "bound_by": mres["shapes"][-1]["index_bound_by"],
-         "library_ms": mres["shapes"][-1]["index_library_ms"],
+         "ms": set_s["index_ms"], "plain_ms": set_s["index_plain_ms"],
+         "bound_ms": set_s["index_bound_ms"],
+         "bound_by": set_s["index_bound_by"],
+         "library_ms": set_s["index_library_ms"],
          "shapes": [{k: r[k] for k in (
              "shape", "nh", "nb", "index_ms", "index_graph_ms",
              "index_read_ms", "index_plain_ms", "index_library_ms",

@@ -28,10 +28,15 @@
 //
 // Design for this card.  The TPU layout is not carried over: no [R,128]
 // lane tiles, no 2W window, no host anchor pass and no serial range
-// search.  A block takes kNeedles consecutive needles and every thread
-// starts on its own four.  A warp reduction gives the block's min and max,
-// and two table loads (one address for the whole block) give the haystack
-// range that can hold any of them.
+// search.  Two launches; mkssd_member_launch gives the one a needle count
+// takes (merge.member_launch is its copy in Python):
+//
+// The blocks launch (more than kGroupsMaxNeedles needles: dist -r, dist
+// batch, set -s/-i, one shard of dist -r --shard-db N).  A block takes
+// kNeedles consecutive needles and every thread starts on its own four.
+// A warp reduction gives the block's min and max, and two table loads
+// (one address for the whole block) give the haystack range that can
+// hold any of them.
 //   * A range of at most kWindow entries (a sorted, dense block) is copied
 //     to shared memory with cp.async, all copies in flight at once, with
 //     the table entries of its buckets where they are at most kSlice; a
@@ -47,9 +52,29 @@
 //     and find one equal to it.  Four needles a lane are in flight, and a
 //     needle costs one or two L1 wavefronts where a search by one thread
 //     costs one a step.
-// What bounds the kernel: the sector rate and the L1 wavefronts of the
-// random bucket loads for sparse needles (dist search, set -s/-i), and
-// shared-memory steps for a staged block.
+// What bounds it: the sector rate and the L1 wavefronts of the random
+// bucket loads for sparse needles, and shared-memory steps for a staged
+// block.  Below about 132 x 1024 needles it leaves SMs idle (profile
+// --shard-db 1: 5,636 needles, 6 blocks for 132 SMs), and each half-warp
+// walks its 16 lanes' needles in a chain of about 16 dependent L2 loads.
+//
+// The groups launch (at most kGroupsMaxNeedles needles: composite and
+// profile --shard-db N, one call per component and shard).  Each group of
+// kGroup = 16 lanes takes one needle, every group at once.  The group
+// loads its needle and its bucket's two table entries (one address for
+// the group), then narrows the bucket in rounds: each lane reads two of
+// kProbes = 32 keys (two independent loads), every key of a range of at
+// most 32 (contiguous) or 32 evenly spaced ones of a larger range, and
+// two ballots count the probes below the needle.  The count c leaves the
+// lower bound after probe c - 1 and at or before probe c, whose key the
+// group takes by a shuffle: the last key read at or above the needle,
+// which decides the hit as K3's step does.  At about 15 keys a bucket
+// (the index's 1/8 rule on uniform keys) one round ends the search; a
+// range of 33 keys or more shrinks 33-fold a round (a skewed bucket).  So
+// the chain is the needle, the table pair, one round and the value: 3-4
+// dependent L2 loads, which is what bounds this launch, with the launch's
+// own cost; the byte bound (each needle, key and output once: about
+// 0.0003 ms at the profile shape) sees neither.
 
 #include <algorithm>
 #include <cstdint>
@@ -65,6 +90,13 @@ constexpr int kWindow = 6144;                     // staged haystack entries
 constexpr int kSlice = 1024;                      // staged table entries
 constexpr unsigned kGroup = 16;                   // lanes that scan a bucket
 constexpr int kWarps = kThreads / 32;
+constexpr int kGroupThreads = 128;                // groups launch: threads
+constexpr int kGroupNeedles = kGroupThreads / kGroup;   // needles a block
+constexpr unsigned kProbes = 2 * kGroup;          // keys a group reads
+// The groups launch takes at most this many needles, the blocks launch
+// more (merge.GROUPS_MAX_NEEDLES holds the same number).
+constexpr long long kGroupsMaxNeedles = 32768;
+enum Launch { kLaunchByRule = 0, kLaunchBlocks = 1, kLaunchGroups = 2 };
 
 struct Index {
   const uint32_t* table;   // nb + 1 lower bounds; unused when nb == 0
@@ -297,6 +329,69 @@ member_kernel(const uint32_t* __restrict__ hay, Index ix,
   }
 }
 
+// Probe j of a round over [b, b + len): every entry of a range of at most
+// kProbes, else kProbes entries evenly spaced, strictly increasing from
+// b + len / 33 to at most b + len - 1 (len >= 33).
+__device__ inline uint32_t probe_at(uint32_t b, uint32_t len, uint32_t j) {
+  return len <= kProbes
+             ? b + j
+             : b + static_cast<uint32_t>(
+                       static_cast<unsigned long long>(j + 1) * len /
+                       (kProbes + 1));
+}
+
+// The groups launch: a group of kGroup lanes a needle (see the head).
+// b, len, ku and x are the same in every lane of a group.
+__global__ void __launch_bounds__(kGroupThreads)
+member_groups_kernel(const uint32_t* __restrict__ hay, Index ix,
+                     const uint32_t* __restrict__ values,
+                     const uint32_t* __restrict__ needles, long long nn,
+                     int32_t* __restrict__ out_member,
+                     uint32_t* __restrict__ out_value) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned sub = lane & (kGroup - 1);
+  const unsigned half = lane & kGroup;           // the group's first lane
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * kGroupThreads + threadIdx.x) /
+      kGroup;
+  const bool ok = i < nn;
+  const uint32_t x = ok ? needles[i] : 0u;
+  uint32_t b = 0, hi = 0;
+  if (ok) bucket_of(ix, x, b, hi);
+  uint32_t len = hi - b, ku = ~x;
+  // the lower bound lies in [b, b + len]; ku holds a[b + len] wherever
+  // that entry was read (a key >= x), as in step()
+  while (__any_sync(0xffffffffu, len > 0)) {
+    const uint32_t np = min(len, kProbes);
+    uint32_t key[2];
+    bool lt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t j = sub + r * kGroup;
+      key[r] = j < np ? hay[probe_at(b, len, j)] : 0u;
+      lt[r] = j < np && key[r] < x;
+    }
+    // the probes ascend, so the c below x are probes 0 .. c - 1
+    const unsigned c =
+        __popc((__ballot_sync(0xffffffffu, lt[0]) >> half) & 0xFFFFu) +
+        __popc((__ballot_sync(0xffffffffu, lt[1]) >> half) & 0xFFFFu);
+    const uint32_t kc = __shfl_sync(0xffffffffu, c < kGroup ? key[0] : key[1],
+                                    half | (c & (kGroup - 1)));
+    if (len > 0) {
+      const uint32_t lo = c == 0 ? b : probe_at(b, len, c - 1) + 1;
+      const uint32_t end = c == np ? b + len : probe_at(b, len, c);
+      if (c < np) ku = kc;
+      b = lo;
+      len = end - lo;
+    }
+  }
+  if (ok && sub == 0) {
+    const bool hit = ku == x;
+    out_member[i] = hit ? 1 : 0;
+    out_value[i] = !hit ? 0u : values != nullptr ? values[b] : b;
+  }
+}
+
 bool valid_index(long long nh, const void* table, long long nb, int shift) {
   if (nh < 0 || nh > 0xFFFFFFFFll || shift < 0 || shift > 32) return false;
   if (nb == 0) return true;
@@ -322,16 +417,42 @@ int mkssd_member_index(const void* hay, long long nh, long long nb,
   return cudaGetLastError();
 }
 
+// The launch mkssd_member takes for nn needles by its rule: 1 the blocks
+// launch, 2 the groups launch (see the head).
+int mkssd_member_launch(long long nn) {
+  return nn <= kGroupsMaxNeedles ? kLaunchGroups : kLaunchBlocks;
+}
+
 // Returns 0 or the cudaError_t of the launch.  hay holds nh sorted u32
 // keys (NULL when nh == 0); table, nb and shift are its index from
 // mkssd_member_index (nb == 0: no table); values is NULL (identity) or nh
 // u32; the caller sizes out_member (int32) and out_value (u32) to nn >= 1.
+// launch: 0 by the rule of mkssd_member_launch, 1 or 2 that launch (the
+// results are the same).
 int mkssd_member(const void* hay, long long nh, const void* table,
                  long long nb, int shift, const void* values,
                  const void* needles, long long nn, void* out_member,
-                 void* out_value, void* stream) {
-  if (nn <= 0 || !valid_index(nh, table, nb, shift))
+                 void* out_value, int launch, void* stream) {
+  if (nn <= 0 || !valid_index(nh, table, nb, shift) || launch < 0 ||
+      launch > kLaunchGroups)
     return cudaErrorInvalidValue;
+  if (launch == kLaunchByRule) launch = mkssd_member_launch(nn);
+  const Index ix{static_cast<const uint32_t*>(table),
+                 static_cast<unsigned long long>(nb), shift,
+                 static_cast<uint32_t>(nh)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* h = static_cast<const uint32_t*>(hay);
+  const uint32_t* v = static_cast<const uint32_t*>(values);
+  const uint32_t* x = static_cast<const uint32_t*>(needles);
+  int32_t* om = static_cast<int32_t*>(out_member);
+  uint32_t* ov = static_cast<uint32_t*>(out_value);
+  if (launch == kLaunchGroups) {
+    const long long nblocks = (nn + kGroupNeedles - 1) / kGroupNeedles;
+    if (nblocks > INT_MAX) return cudaErrorInvalidValue;
+    member_groups_kernel<<<static_cast<int>(nblocks), kGroupThreads, 0, s>>>(
+        h, ix, v, x, nn, om, ov);
+    return cudaGetLastError();
+  }
   const long long nblocks = (nn + kNeedles - 1) / kNeedles;
   if (nblocks > INT_MAX) return cudaErrorInvalidValue;
   const size_t smem = sizeof(uint32_t) *
@@ -340,15 +461,8 @@ int mkssd_member(const void* hay, long long nh, const void* table,
       member_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const Index ix{static_cast<const uint32_t*>(table),
-                 static_cast<unsigned long long>(nb), shift,
-                 static_cast<uint32_t>(nh)};
-  member_kernel<<<static_cast<int>(nblocks), kThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hay), ix,
-      static_cast<const uint32_t*>(values),
-      static_cast<const uint32_t*>(needles), nn,
-      static_cast<int32_t*>(out_member), static_cast<uint32_t*>(out_value));
+  member_kernel<<<static_cast<int>(nblocks), kThreads, smem, s>>>(
+      h, ix, v, x, nn, om, ov);
   return cudaGetLastError();
 }
 

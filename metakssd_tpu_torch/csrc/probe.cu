@@ -195,6 +195,66 @@ floor_kernel(const T* __restrict__ tiles, int tile_rows, int row0, int row1,
   block_reduce<OP>(acc, out, partial, tickets);
 }
 
+// The floor over int8 and uint16 tiles, 16 bytes a load.  A row of 128
+// lanes is 128 (int8) or 256 (uint16) bytes, kTPR = 8 or 16 uint4s; a
+// warp's load instruction moves 512 bytes (4 or 2 rows), as floor_kernel's
+// does at int32, where one element a thread would move 32 or 64.  The
+// block stages its share's rows in shared memory kBatch uint4s a thread
+// at a time (every load of a batch in flight at once, 32 KB), and each
+// (lane, row group) thread then reads its lane of the batch's rows there,
+// sign-extended (int8) or zero-extended (uint16) by load(), in the order
+// floor_kernel reads them from device memory: the output row is the one
+// floor_kernel would write, bit for bit.  __launch_bounds__(..., 4) holds
+// the kernel to 32 registers, so that 4 blocks share an SM and P2's 512
+// tile blocks take one share each in one round (grid_for).  The rows
+// [lo, hi) of a share are one contiguous run of bytes; its start is
+// 16-byte aligned where the tiles are (mkssd_probe_floor checks that).
+// Other forms timed on the H100 (PERF.md section 6): 16 or 8 lane sums a
+// thread in registers, folded by shuffles, slower (40 registers, so 3
+// blocks an SM and 3 shares a tile block; or, held to 32 registers, two
+// loads a thread in flight and spills); a double-buffered cp.async ring
+// of 20 KB stages, 2% faster at int8 and 4% slower at uint16.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kLanes * kGroups, 4)
+floor_vec_kernel(const T* __restrict__ tiles, int tile_rows, int row0,
+                 int row1, uint32_t* __restrict__ out, uint32_t* partial,
+                 unsigned* tickets) {
+  constexpr int kTPR = kLanes * static_cast<int>(sizeof(T)) / 16;
+  constexpr int kThreads = kLanes * kGroups;
+  constexpr int kBatch = 4;                        // uint4s a thread
+  constexpr int kRowsB = kBatch * kThreads / kTPR;  // rows a batch
+  __shared__ uint4 s_run[kBatch * kThreads];
+  const T* s_el = reinterpret_cast<const T*>(s_run);
+  int lo, hi;
+  block_rows(row1 - row0, lo, hi);
+  lo += row0;
+  hi += row0;
+  const int t = threadIdx.y * kLanes + threadIdx.x;
+  const uint4* run = reinterpret_cast<const uint4*>(
+      tiles + (static_cast<size_t>(blockIdx.x) * tile_rows + lo) * kLanes);
+  const int nvec = (hi - lo) * kTPR;
+  uint32_t acc = 0;
+  for (int base = 0; base < nvec; base += kBatch * kThreads) {
+    uint4 w[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int v = base + i * kThreads + t;
+      if (v < nvec) w[i] = __ldg(run + v);
+    }
+    __syncthreads();                 // the previous batch has been read
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (base + i * kThreads + t < nvec) s_run[i * kThreads + t] = w[i];
+    }
+    __syncthreads();
+    const int rows = min(kRowsB, (nvec - base) / kTPR);
+    for (int r = threadIdx.y; r < rows; r += kGroups)
+      acc = combine<OP>(acc, static_cast<uint32_t>(
+                                 load(s_el + r * kLanes + threadIdx.x)));
+  }
+  block_reduce<OP>(acc, out, partial, tickets);
+}
+
 __global__ void block_index_kernel(uint32_t* __restrict__ out) {
   out[static_cast<size_t>(blockIdx.x) * kLanes + threadIdx.x] = blockIdx.x;
 }
@@ -483,13 +543,22 @@ cudaError_t launch_smem(K kernel, size_t smem, int nb, int nrows,
   return cudaGetLastError();
 }
 
+// int32 tiles: floor_kernel, an element a thread; int8 and uint16:
+// floor_vec_kernel, 16 bytes a thread, on 16-byte aligned tiles.
 template <typename T>
 cudaError_t launch_floor(const void* tiles, int nb, int tile_rows, int row0,
                          int row1, int op, uint32_t* out, uint32_t* partial,
                          unsigned* tickets, cudaStream_t s) {
   const T* t = static_cast<const T*>(tiles);
-  const auto kernel =
-      op == kXor ? floor_kernel<T, kXor> : floor_kernel<T, kSum>;
+  void (*kernel)(const T*, int, int, int, uint32_t*, uint32_t*, unsigned*);
+  if constexpr (sizeof(T) == 4) {
+    kernel = op == kXor ? floor_kernel<T, kXor> : floor_kernel<T, kSum>;
+  } else {
+    if (reinterpret_cast<uintptr_t>(t) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+    kernel = op == kXor ? floor_vec_kernel<T, kXor>
+                        : floor_vec_kernel<T, kSum>;
+  }
   const dim3 grid = grid_for(kernel, 0, nb, row1 - row0, tickets != nullptr);
   kernel<<<grid, kBlock, 0, s>>>(t, tile_rows, row0, row1, out, partial,
                                  tickets);
@@ -522,7 +591,8 @@ extern "C" {
 
 // Rows [row0, row1) of every tile block, summed (op 0) or XORed (op 1);
 // op 2 writes each block's index without reading the tiles.  dtype: 0
-// int32, 1 int8, 2 uint16.
+// int32, 1 int8, 2 uint16; int8 and uint16 tiles must be 16-byte aligned
+// (cudaErrorMisalignedAddress otherwise).
 int mkssd_probe_floor(const void* tiles, int dtype, int nb, int tile_rows,
                       int row0, int row1, int op, void* out, void* partial,
                       void* tickets, void* stream) {

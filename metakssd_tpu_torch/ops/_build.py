@@ -40,8 +40,11 @@ _SIGNATURES = {
     # hay, nh, nb, shift, table, stream
     "mkssd_member_index": [_P, _LL, _LL, _I, _P, _P],
     # hay, nh, table (NULL when nb == 0), nb, shift, values (NULL =
-    # identity), needles, nn, out_member, out_value, stream
-    "mkssd_member": [_P, _LL, _P, _LL, _I, _P, _P, _LL, _P, _P, _P],
+    # identity), needles, nn, out_member, out_value, launch (0 by the
+    # rule, 1 blocks, 2 groups), stream
+    "mkssd_member": [_P, _LL, _P, _LL, _I, _P, _P, _LL, _P, _P, _I, _P],
+    # nn: the launch mkssd_member's rule gives nn needles
+    "mkssd_member_launch": [_LL],
     # tiles, dtype, nb, tile_rows, row0, row1, op, out, partial, tickets,
     # stream
     "mkssd_probe_floor": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],

@@ -8,7 +8,8 @@ and launch overhead.  Each of their Pallas kernels reduces one block of a
 kernels (``csrc/probe.cu``) cover every variant:
 
 * ``floor`` (``mkssd_probe_floor``): sum, XOR or block index over a row
-  range of int32, int8 or uint16 tiles;
+  range of int32, int8 or uint16 tiles (the last two read 16 bytes a
+  load, from 16-byte aligned tiles);
 * ``winmath`` (``mkssd_probe_winmath``): the sum of ``(uni_hi ^ uni_lo) |
   invalid`` over the windows of the first ``nrows`` rows;
 * ``gather`` (``mkssd_probe_gather``): ``ng`` chained lookups in a
@@ -296,15 +297,29 @@ def _table(t: torch.Tensor, tiles: torch.Tensor, name: str) -> None:
                          "tiles' device")
 
 
+def check_vector_rows(tiles: torch.Tensor, row0: int) -> None:
+    """Raises unless the floor kernel of int8 and uint16 tiles, which reads
+    16 bytes a load, can read ``tiles`` from row ``row0``: the tiles' base
+    and the row's offset ``row0 * 128 * itemsize`` 16-byte aligned."""
+    offset = row0 * LANES * tiles.element_size()
+    if tiles.data_ptr() % 16 or offset % 16:
+        raise ValueError(f"floor: {tiles.dtype} tiles at {tiles.data_ptr():#x}"
+                         f" (row {row0} at +{offset}) are not 16-byte "
+                         "aligned; the kernel reads 16 bytes a load")
+
+
 def floor(tiles: torch.Tensor, row0: int, row1: int,
           op: str = "sum") -> torch.Tensor:
     """Sum (``op="sum"``), XOR (``"xor"``) or block index (``"none"``) of
-    rows [row0, row1) of each tile block."""
+    rows [row0, row1) of each tile block.  On CUDA, int8 and uint16 tiles
+    must be 16-byte aligned (``check_vector_rows``)."""
     if tiles.device.type == "cpu":
         return floor_plain(tiles, row0, row1, op)
     lib, stream = _cuda(tiles, "floor")
     if tiles.dtype not in _TILE_TYPES or op not in OPS:
         raise ValueError(f"floor: no kernel for {tiles.dtype} tiles, op {op}")
+    if tiles.element_size() < 4 and op != "none":
+        check_vector_rows(tiles, row0)
     out, partial, tickets = _outputs(tiles, row1 - row0, "floor", stream)
     _raise_on(lib.mkssd_probe_floor(
         tiles.data_ptr(), _TILE_TYPES[tiles.dtype], tiles.shape[0],

@@ -41,13 +41,14 @@ from metakssd_tpu_torch.ops import sketch_filter
 from metakssd_tpu_torch.state import AcceptTables
 
 # Launches of each kernel of csrc/ (not of its plain version): K1, K2, K3
-# (``member``) and its index build (``member_index``, both counted by
+# (``member``, every call, and ``member_groups``, the calls that took its
+# groups launch) and its index build (``member_index``, all counted by
 # ops/merge.py) and the probe kernels (``probe_*``, counted by
 # ops/probe.py).  Reset with reset_launches(); chip_smoke.py reads them
 # around each leg of the main path.
 LAUNCHES = {"sketch_compact": 0, "sketch_full": 0, "member": 0,
-            "member_index": 0, "probe_floor": 0, "probe_winmath": 0,
-            "probe_gather": 0, "probe_search": 0}
+            "member_groups": 0, "member_index": 0, "probe_floor": 0,
+            "probe_winmath": 0, "probe_gather": 0, "probe_search": 0}
 
 CHUNK_WINDOWS = 1 << 26        # windows per device dispatch (64M)
 DEPTH = 2                      # chunks queued per device before resolving

@@ -322,3 +322,81 @@ def test_shard_match_cuda_matches_cpu(cuda, monkeypatch, max_needles):
     # the posting rows of 0xFFFFFFFF (the last key) are among the matches
     last = gid[starts[-2]:starts[-1]]
     assert np.isin(last, got["cuda"][0][got["cuda"][1] == ab[-1]]).all()
+
+
+LAUNCHES = ["rule", "blocks", "groups"]
+COUNTS = [1, 15, 16, 17, 1023, 1024, 1025, 5636,
+          merge.GROUPS_MAX_NEEDLES - 1, merge.GROUPS_MAX_NEEDLES,
+          merge.GROUPS_MAX_NEEDLES + 1]
+
+
+def _profile_hay():
+    """Like the haystack of profile --shard-db 1 (249,105 keys, about 15
+    a bucket), 0xFFFFFFFF included."""
+    rng = np.random.default_rng(650)
+    hay = np.unique(_u32(rng, 0, ALL_ONES, 249_200))[:249_104]
+    return np.append(hay, np.uint32(ALL_ONES)), rng
+
+
+@pytest.mark.parametrize("launch", LAUNCHES)
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("identity", [False, True])
+def test_small_counts_both_launches(cuda, identity, order, launch):
+    """K3 at needle counts around a block's 1024, the profile's 5,636 and
+    the launch threshold, over a profile-like haystack through its
+    index: each launch (and the rule's choice) equals member_plain and
+    numpy, 0xFFFFFFFF a member, one K3 launch a call."""
+    hay, rng = _profile_hay()
+    values = _u32(rng, 0, 1 << 32, hay.size)
+    sh = merge.StaticHaystack(hay, None if identity else values, cuda)
+    for n in COUNTS:
+        x = np.concatenate([rng.choice(hay, n - n // 3),
+                            _u32(rng, 0, ALL_ONES, n // 3)])
+        x[rng.integers(0, n)] = ALL_ONES
+        x = np.sort(x)
+        if order == "shuffled":
+            x = rng.permutation(x)
+        nd = merge.u32_tensor(x).to(cuda)
+        sketch_cuda.reset_launches()
+        m, val = merge.member(sh.hay, sh.values, nd, sh.index,
+                              None if launch == "rule" else launch)
+        pm, pv = merge.member_plain(sh.hay, sh.values, nd)
+        torch.cuda.synchronize()
+        assert sketch_cuda.LAUNCHES["member"] == 1, n
+        took = merge.member_launch(n) if launch == "rule" else launch
+        assert sketch_cuda.LAUNCHES["member_groups"] == \
+            (took == "groups"), (n, launch)
+        assert torch.equal(m, pm) and torch.equal(val, pv), (n, launch)
+        em, ev = _numpy_membership(hay, None if identity else values, x)
+        np.testing.assert_array_equal(m.cpu().numpy().astype(bool), em)
+        np.testing.assert_array_equal(val.cpu().numpy().view(np.uint32), ev)
+        assert em[x == ALL_ONES].all()
+
+
+def test_launch_rule_matches_kernel(cuda):
+    """merge.member_launch is mkssd_member_launch, needle for needle,
+    around the threshold and at the shapes PERF.md times."""
+    from metakssd_tpu_torch.ops import _build
+    lib = _build.library()
+    t = merge.GROUPS_MAX_NEEDLES
+    for n in (1, 5636, t - 1, t, t + 1, 128 * 4096, 1 << 20, 1_000_033,
+              65_600 * 1024):
+        code = lib.mkssd_member_launch(n)
+        assert code == merge.K3_LAUNCH_CODES[merge.member_launch(n)], n
+
+
+@pytest.mark.parametrize("launch", ["blocks", "groups"])
+@pytest.mark.parametrize("name", CASES + SHAPES)
+def test_each_launch_on_every_case(cuda, name, launch):
+    """Both launches, forced, on the edge cases and the search and set
+    shapes (which the rule sends to one launch or the other), in both
+    modes: equal to member_plain."""
+    hay, values, needles = _case(name) if name in CASES else _shape(name)
+    h = merge.u32_tensor(hay).to(cuda)
+    nd = merge.u32_tensor(needles).to(cuda)
+    ix = merge.build_index(h) if hay.size else None
+    for v in (None, merge.u32_tensor(values).to(cuda)):
+        m, val = merge.member(h, v, nd, ix, launch)
+        pm, pv = merge.member_plain(h, v, nd)
+        torch.cuda.synchronize()
+        assert torch.equal(m, pm) and torch.equal(val, pv), (name, launch)

@@ -54,12 +54,16 @@ def test_variants_match_plain(cuda, mod):
             assert torch.equal(got, v.plain(t)), v.name
 
 
+@pytest.mark.parametrize("reduce", ["ticket", "atomic"])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.uint16])
 @pytest.mark.parametrize("op", ["sum", "xor", "none"])
-def test_floor_row_ranges(cuda, dtype, op):
-    """Ranges that start and end inside the kernel's 128-row parts, with
-    values that wrap the int32 sum (int32) or use the sign bit (int8) or
-    the top bit (uint16)."""
+def test_floor_row_ranges(cuda, monkeypatch, dtype, op, reduce):
+    """Ranges that start and end inside the kernel's 128-row parts and
+    inside the rows a warp's 16-byte loads cover (4 at int8, 2 at
+    uint16), in both reduce modes, with values that wrap the int32 sum
+    (int32) or use the sign bit (int8) or the top bit (uint16); int8 and
+    uint16 tiles one element off a 16-byte boundary are refused."""
+    monkeypatch.setattr(probe, "REDUCE", dict.fromkeys(probe.REDUCE, reduce))
     rng = np.random.default_rng(2)
     if dtype == torch.int32:
         base = rng.integers(-2**31, 2**31, (3, 300, 128), dtype=np.int64)
@@ -70,9 +74,20 @@ def test_floor_row_ranges(cuda, dtype, op):
     else:
         t = torch.from_numpy(rng.integers(0, 1 << 16, (3, 300, 128))
                              .astype(np.uint16)).to(cuda)
-    for row0, row1 in ((0, 300), (3, 203), (130, 131), (0, 8)):
+    for row0, row1 in ((0, 300), (3, 203), (130, 131), (0, 8), (1, 299),
+                       (5, 138), (0, 7), (2, 5), (129, 262)):
         assert torch.equal(probe.floor(t, row0, row1, op),
-                           probe.floor_plain(t, row0, row1, op))
+                           probe.floor_plain(t, row0, row1, op)), \
+            (row0, row1)
+    if dtype != torch.int32 and op != "none":
+        big = torch.zeros(t.numel() + 64, dtype=dtype, device=cuda)
+        off = (-big.data_ptr() % 16) // big.element_size() + 1
+        bad = big[off:off + t.numel()].view(t.shape)
+        bad.copy_(t)
+        before = sketch_cuda.LAUNCHES["probe_floor"]
+        with pytest.raises(ValueError, match="16-byte"):
+            probe.floor(bad, 0, 300, op)
+        assert sketch_cuda.LAUNCHES["probe_floor"] == before
 
 
 @pytest.mark.parametrize("TL", [1, 10, 22, 31, 32])
@@ -244,20 +259,28 @@ def test_reduce_modes_match_plain(cuda, monkeypatch, reduce):
     for nb, rows in ((5, 100), (70, 1000), (300, 520)):
         t = torch.from_numpy(rng.integers(0, 4, (nb, rows + 22, 128))
                              .astype(np.int32)).to(cuda)
+        narrow = [torch.from_numpy(rng.integers(-128, 128, t.shape)
+                                   .astype(np.int8)).to(cuda),
+                  torch.from_numpy(rng.integers(0, 1 << 16, t.shape)
+                                   .astype(np.uint16)).to(cuda)]
         calls = [("floor", (0, rows, "sum"), {}),
                  ("floor", (3, rows, "xor"), {}),
                  ("winmath", (rows, 22), {}),
                  ("gather", (rows, tab, 4096, 33, 5), {}),
                  ("search", (rows, 11, 6, 3), {"accept": accept})]
-        want = [getattr(probe, f + "_plain")(t, *a, **kw)
-                for f, a, kw in calls]
+        # the int8 and uint16 floors: both ops, rows not a multiple of 4
+        calls = [(t, f, a, kw) for f, a, kw in calls] + [
+            (x, "floor", (r0, rows - 1, op), {}) for x in narrow
+            for r0, op in ((0, "sum"), (3, "xor"))]
+        want = [getattr(probe, f + "_plain")(x, *a, **kw)
+                for x, f, a, kw in calls]
         torch.cuda.synchronize()
         got = [[], []]
         for _ in range(3):
             for s, out in zip(streams, got):
                 with torch.cuda.stream(s):
-                    out.extend(getattr(probe, f)(t, *a, **kw)
-                               for f, a, kw in calls)
+                    out.extend(getattr(probe, f)(x, *a, **kw)
+                               for x, f, a, kw in calls)
         torch.cuda.synchronize()
         for out in got:
             for i, g in enumerate(out):
