@@ -151,6 +151,15 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    and ``-q --shard-db 1`` on both devices; TSVs (the ``--shard-db 1`` ones
    too) and ``.abv`` files byte-identical, and every taxon holding a
    genome of coverage >= 1x in those reads reported;
+6b. host: ``--device host`` (the native host engine, no kernel) on the
+   data of phases 4-6 at their full size: ``dist`` of the 1024 genomes,
+   ``profile`` of the 4M reads, ``dist -r`` of the 128 queries, ``set
+   -u`` and ``-q`` of the set leg and the chain's ``composite -q``, every
+   file byte-identical to the ``--device cuda`` run of the same phase and
+   every launch count 0; each verb's seconds printed beside the card's,
+   with the host library's build (``serial`` where ``-fopenmp`` fails);
+   and ``profile --device host`` of the first CPU_READS reads in a fresh
+   process, which must leave CUDA uninitialised, TSVs byte-identical;
 7. abv: one abundance vector per taxon of phase 6's markers (16,384
    vectors over 16,384 species dims, 30-600 nonzero dims of skewed
    prevalence, lognormal percentages), ``composite -i``, and 128 queries
@@ -177,14 +186,15 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    of a kernel replayed from a graph (the floor kernel's block-index op
    on one block, no read), printed beside P4's noread and touch8;
 8b. bench: ``python -m metakssd_tpu_torch.bench`` (the root bench.py's
-   legs: sketch reads/s on the card and the CPU, ``kernel_chain_mwin``,
-   profile latency, abv q/s sparse and dense, e2e profile cold and
-   steady), in a child process, at the root bench's defaults (200K reads,
-   4096 species) and at 4M reads against 16,384 species x 3000 ids (the
-   CPU sketch there repeated once); each
-   line is printed, must hold every key positive, and its legs' launch
-   counts (each from 0) must show K1 on the card in the sketch, kernel
-   (at least 16) and e2e legs;
+   legs: sketch reads/s on the card and on the host engine,
+   ``kernel_chain_mwin``, profile latency, abv q/s sparse and dense, e2e
+   profile cold and steady on the card and on the host engine), in a
+   child process, at the root bench's defaults (200K reads, 4096 species)
+   and at 4M reads against 16,384 species x 3000 ids; each line is
+   printed, must hold every key positive, and its legs' launch counts
+   (each from 0) must show K1 on the card in the sketch, kernel (at least
+   16) and e2e legs and no launch in the host e2e leg; the host engine's
+   reads/s and e2e seconds are printed beside the card's;
 9. cuda tests: ``pytest -m cuda`` on the five cuda-marked test files.
 
 The line before the last is the kernels' JSON record, with the launch
@@ -874,7 +884,8 @@ def phase_slice(work: str, seed: int) -> dict:
     print("  subset: --device cuda and --device cpu TSVs byte-identical",
           flush=True)
     return {"launches": launches, "shuf": shufp, "markerdb": db,
-            "subset": sub, "sub_coverage": sub_coverage, "genomes": gdir,
+            "subset": sub, "subset_cuda": sub_out["cuda"],
+            "sub_coverage": sub_coverage, "genomes": gdir,
             "fastq": fq, "profile": out, "profile_s": profile_s,
             "dist_s": dist_s}
 
@@ -1632,7 +1643,7 @@ def _run_cli_to(label: str, argv: list, path: str) -> float:
     return dt
 
 
-def _real_chain(work: str, sres: dict) -> None:
+def _real_chain(work: str, sres: dict) -> dict:
     """The MarkerDB chain on phase 4's L3K11 genomes (taxa of CHAIN_TAXON
     consecutive genomes), then ``composite -q`` and ``-q -b`` of the
     first CPU_READS reads on both devices: byte-identical TSVs and .abv
@@ -1659,7 +1670,7 @@ def _real_chain(work: str, sres: dict) -> None:
         run_cli(f"chain set -i --device {dev}", [
             "set", "-i", d["uq"], "-o", d["mk"], "--device", dev, d["pan"]])
         d["tsv"] = os.path.join(work, f"chain_{dev}.tsv")
-        _run_cli_to(f"chain composite -q --device {dev}", [
+        d["tsv_s"] = _run_cli_to(f"chain composite -q --device {dev}", [
             "composite", "-r", d["mk"], "-q", qco, "--device", dev],
             d["tsv"])
         run_cli(f"chain composite -q -b --device {dev}", [
@@ -1695,6 +1706,8 @@ def _real_chain(work: str, sres: dict) -> None:
           f"{len(want)} taxa holding a genome of coverage >= 1x all "
           "present; TSVs (also --shard-db 1), .abv files and set dirs "
           "byte-identical between devices", flush=True)
+    return {"mk": out["cuda"]["mk"], "qco": qco, "tsv": out["cuda"]["tsv"],
+            "tsv_s": out["cuda"]["tsv_s"]}
 
 
 def phase_set(work: str, seed: int, sres: dict) -> dict:
@@ -1711,7 +1724,8 @@ def phase_set(work: str, seed: int, sres: dict) -> dict:
           f"in {time.time() - t:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     sketch_cuda.reset_launches()
-    wd = {"cuda": set_leg(work, "cuda", co, taxf)}
+    secs: dict = {}
+    wd = {"cuda": set_leg(work, "cuda", co, taxf, secs)}
     launches = dict(sketch_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"  set leg launches {launches}; peak device "
@@ -1745,8 +1759,90 @@ def phase_set(work: str, seed: int, sres: dict) -> dict:
     print(f"  set: 6 output dirs ({size} bytes) byte-identical between "
           f"--device cuda and --device cpu; {st.all_ctx_ct} markers in "
           f"{st.infile_num} taxa", flush=True)
-    _real_chain(work, sres)
-    return {"launches": launches, "markers": mk, "k3_calls": calls}
+    chain = _real_chain(work, sres)
+    return {"launches": launches, "markers": mk, "k3_calls": calls,
+            "co": co, "dir": wd["cuda"], "secs": secs, "chain": chain}
+
+
+def phase_host(work: str, sres: dict, qres: dict, setres: dict) -> None:
+    """``--device host`` (the native host engine) on the data of phases 4,
+    5 and 6 at their full size: ``dist`` of the genomes, ``profile`` of
+    the 4M reads, ``dist -r``, ``set -u/-q`` and the chain's ``composite
+    -q``.  Every file byte-identical to the ``--device cuda`` run of the
+    same phase and no kernel launched; each verb's seconds printed beside
+    the card's, with the host library's build."""
+    from metakssd_tpu_torch.io import native
+    from metakssd_tpu_torch.ops import sketch_cuda
+    kind = native.build_kind()
+    check(kind is not None, "--device host: no host library loaded")
+    j = lambda name: os.path.join(work, name)   # noqa: E731
+    sketch_cuda.reset_launches()
+    rows = []
+    db = j("host_markerdb")
+    rows.append(("dist (1024 genomes)", run_cli("dist --device host", [
+        "dist", "-L", sres["shuf"], "-o", db, "--device", "host",
+        sres["genomes"]]), sres["dist_s"]))
+    _same_dirs(sres["markerdb"], db, "dist --device host against phase 4")
+    out = j("host_profile")
+    rows.append(("profile (4M reads)", run_cli("profile --device host", [
+        "profile", "-L", sres["shuf"], "-r", sres["markerdb"], "-o", out,
+        "--device", "host", sres["fastq"]]), sres["profile_s"]))
+    _same_files(sres["profile"], out, PROFILE_TSVS,
+                "profile --device host against phase 4")
+    _same_dirs(os.path.join(sres["profile"], "qry.co"),
+               os.path.join(out, "qry.co"),
+               "profile --device host's sketch against phase 4")
+    d = j("host_d")
+    rows.append(("dist -r (128 queries)", run_cli("dist -r --device host", [
+        "dist", "-r", qres["refco"], "-o", d, "--device", "host",
+        qres["qryco"]]), qres["seconds"]["cuda"]))
+    _same_files(qres["dist_out"], d, ("distance.out",),
+                "dist -r --device host against phase 5")
+    for verb, src, name in (("-u", setres["co"], "u"),
+                            ("-q", os.path.join(setres["dir"], "pan"), "uq")):
+        o = j(f"host_set_{name}")
+        rows.append((f"set {verb} (set leg)", run_cli(
+            f"set {verb} --device host", ["set", verb, "-o", o, "--device",
+                                          "host", src]),
+            setres["secs"][verb]))
+        _same_dirs(os.path.join(setres["dir"], name), o,
+                   f"set {verb} --device host against phase 6")
+    chain = setres["chain"]
+    tsv = j("host_chain.tsv")
+    rows.append(("composite -q (chain)", _run_cli_to(
+        "chain composite -q --device host", [
+            "composite", "-r", chain["mk"], "-q", chain["qco"], "--device",
+            "host"], tsv), chain["tsv_s"]))
+    with open(tsv, "rb") as a, open(chain["tsv"], "rb") as b:
+        text = a.read()
+        check(text and text == b.read(), "composite -q --device host "
+                                         "against phase 6's chain")
+    launches = {k: v for k, v in sketch_cuda.LAUNCHES.items() if v}
+    check(not launches, f"--device host launched kernels: {launches}")
+    # a fresh process on this machine, where a card is present: host never
+    # initialises CUDA
+    sub = j("host_subset")
+    probe = ("import sys, torch; from metakssd_tpu_torch import cli; "
+             "rc = cli.main(sys.argv[1:]); "
+             "sys.exit(rc or 3 * torch.cuda.is_initialized())")
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", probe, "profile", "-L", sres["shuf"], "-r",
+         sres["markerdb"], "-o", sub, "--device", "host", sres["subset"]],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"profile --device host in a fresh process "
+          f"exited {proc.returncode} (3: CUDA initialised):\n"
+          f"{proc.stderr[-2000:]}")
+    _same_files(sres["subset_cuda"], sub, PROFILE_TSVS,
+                "subset profile --device host against --device cuda")
+    print(f"  subset profile --device host in a fresh process: "
+          f"{time.time() - t:.3f} s, CUDA never initialised, TSVs "
+          "byte-identical to --device cuda", flush=True)
+    print(f"  host engine ({kind} build) beside the card, seconds; every "
+          "file byte-identical, no kernel launched:", flush=True)
+    for verb, host_s, card_s in rows:
+        print(f"    {verb:24s} host {host_s:9.3f}  cuda {card_s:9.3f}",
+              flush=True)
 
 
 def _abv_blocks(path: str, index_of: dict):
@@ -2051,21 +2147,21 @@ def phase_probes() -> tuple[list, dict, int]:
 BENCH_SIZES = (("200K reads x 4096 species", {}),
                ("4M reads x 16384 species",
                 {"MKSSD_BENCH_READS": "4000000",
-                 "MKSSD_BENCH_SPECIES": "16384",
-                 "MKSSD_BENCH_CPU_REPS": "1"}))
+                 "MKSSD_BENCH_SPECIES": "16384"}))
 BENCH_LEG_TIMEOUT = 400           # seconds a leg of the bench may take
 BENCH_KEYS = ("cpu_reads_per_s", "kernel_mwin_per_s", "profile_latency_s",
               "abv_queries_per_s", "abv_dense_queries_per_s", "e2e_total_s",
-              "e2e_cold_total_s")
+              "e2e_cold_total_s", "cpu_e2e_total_s", "cpu_e2e_cold_total_s")
 BENCH_K_REPS = 16                 # K1 launches of a kernel_chain_mwin pass
 
 
 def phase_bench(work: str) -> list:
     """The bench at BENCH_SIZES, each run in a child process: it must
     exit 0 and report every key positive, and its kernel leg must have
-    launched K1 at least BENCH_K_REPS times and its sketch and e2e legs
-    K1 on the card (the counts are the legs' own, from 0).  Returns
-    (label, bench line) per size."""
+    launched K1 at least BENCH_K_REPS times, its sketch and e2e legs
+    K1 on the card and its host e2e leg no kernel (the counts are the
+    legs' own, from 0).  Prints the host engine's numbers beside the
+    card's.  Returns (label, bench line) per size."""
     out = []
     for label, env_size in BENCH_SIZES:
         env = dict(os.environ, MKSSD_BENCH_CACHE=os.path.join(
@@ -2094,11 +2190,22 @@ def phase_bench(work: str) -> list:
         for key in BENCH_KEYS:
             check(ex.get(key, 0) > 0, f"bench ({label}): {key} is "
                   f"{ex.get(key)}")
-        stages = ex.get("e2e_stages", {})
-        check(stages and min(stages.values()) >= 0 and
-              sum(stages.values()) > 0, f"bench ({label}): e2e_stages "
-              f"{stages}")
+        for key in ("e2e_stages", "cpu_e2e_stages"):
+            stages = ex.get(key, {})
+            check(stages and min(stages.values()) >= 0 and
+                  sum(stages.values()) > 0, f"bench ({label}): {key} "
+                  f"{stages}")
         launches = ex["launches"]
+        check(not launches["e2e_host"], f"bench ({label}): the host e2e "
+              f"leg launched {launches['e2e_host']}")
+        print(f"  bench, {label}: host engine ({ex['host_library']} build) "
+              f"beside the card ({ex['device']}): sketch "
+              f"{ex['cpu_reads_per_s']:.1f} vs {line['value']:.1f} reads/s; "
+              f"e2e steady {ex['cpu_e2e_total_s']} vs {ex['e2e_total_s']} s, "
+              f"cold {ex['cpu_e2e_cold_total_s']} vs "
+              f"{ex['e2e_cold_total_s']} s; stages host "
+              f"{json.dumps(ex['cpu_e2e_stages'])}, card "
+              f"{json.dumps(ex['e2e_stages'])}", flush=True)
         check(launches["kernel"].get("sketch_compact", 0) >= BENCH_K_REPS,
               f"bench ({label}): kernel leg launches {launches['kernel']}")
         for leg in ("sketch", "e2e"):
@@ -2233,6 +2340,10 @@ def main(argv=None) -> int:
         t0 = time.time()
         setres = phase_set(work, args.seed, sres)
         _phase("set", t0)
+
+        t0 = time.time()
+        phase_host(work, sres, qres, setres)
+        _phase("host", t0)
 
         t0 = time.time()
         phase_abv(work, args.seed, setres["markers"])

@@ -1,6 +1,6 @@
 """The port's benchmark: the legs of the root ``bench.py`` on one device.
 
-    python -m metakssd_tpu_torch.bench [--device cuda|cpu] [--e2e]
+    python -m metakssd_tpu_torch.bench [--device cuda|cuda:N|cpu] [--e2e]
 
 Prints ONE JSON line of the root bench's shape,
 
@@ -9,14 +9,16 @@ Prints ONE JSON line of the root bench's shape,
 
 with ``--e2e`` the root bench's ``e2e_profile_latency_s`` line instead.
 Each leg runs in a fresh process of its own under MKSSD_BENCH_TIMEOUT
-seconds, and repeats its measurement MKSSD_BENCH_REPS times (the CPU
-sketch, MKSSD_BENCH_CPU_REPS times, by default as many): ``extra`` keeps
-the best repeat under the root bench's key and every repeat beside it as
-``<key>_runs``.
+seconds, and repeats its measurement MKSSD_BENCH_REPS times: ``extra``
+keeps the best repeat under the root bench's key and every repeat beside
+it as ``<key>_runs``.
 
 * sketch: ``pipeline.run_stage1`` of the fastq with abundance (``dist -A``)
   on ``--device`` -> ``value`` (reads/s, every repeat in
-  ``reads_per_s_runs``), and the same on the CPU -> ``cpu_reads_per_s``;
+  ``reads_per_s_runs``), and the same on the native host engine
+  (``--device host``) -> ``cpu_reads_per_s``: the root bench's
+  ``cpu_reads_per_s`` ran ``run_stage1`` under ``MKSSD_BACKEND=cpu``,
+  which is that engine;
 * kernel: ``ops/kernel_bench.kernel_chain_mwin`` -> ``kernel_mwin_per_s``
   (2^24 windows a dispatch; on the CPU, where K1's plain version runs,
   2^14);
@@ -29,7 +31,10 @@ the best repeat under the root bench's key and every repeat beside it as
   ``abv_queries_per_s``; here each route keeps its own key);
 * e2e: ``profile_e2e.profile_fastq`` once cold (index sidecars removed)
   -> ``e2e_cold_total_s``, then steady -> ``e2e_total_s`` and the best
-  repeat's ``e2e_stages``.
+  repeat's ``e2e_stages``;
+* e2e_host: the e2e leg on the host engine, as the root bench's e2e
+  worker ran on a host without a TPU -> ``cpu_e2e_total_s``,
+  ``cpu_e2e_cold_total_s`` and ``cpu_e2e_stages`` (not with ``--e2e``).
 
 The inputs are the root bench's, byte for byte, from the same seeds: the
 fastq (``default_rng(7)``, a 2 Mbp genome, MKSSD_BENCH_READS x 100 bp
@@ -48,9 +53,11 @@ repository is read: no ``ref_*`` key, and ``vs_baseline`` is 0.0.
 ``--device cuda`` without a card exits 1 and prints no number, and so does
 a leg that fails or passes its timeout: nothing falls back to the CPU.
 ``extra.device`` names what ran the legs: the card's name and power limit
-as ``nvidia-smi`` gives them, or ``cpu``.  ``extra.launches`` has each
-leg's kernel launches (``ops/sketch_cuda.LAUNCHES``, nonzero entries) and
-``extra.host_library`` the host library's build (``io/native.build_kind``).
+as ``nvidia-smi`` gives them, or ``cpu``; the host engine's legs ran on
+the same machine's CPU.  ``extra.launches`` has each leg's kernel launches
+(``ops/sketch_cuda.LAUNCHES``, nonzero entries) and ``extra.host_library``
+the host library's build (``io/native.build_kind``: ``serial`` where
+``-fopenmp`` fails, as on the card's host).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ import argparse
 import glob
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -74,7 +82,6 @@ REFERENCE = os.environ.get("MKSSD_REFERENCE", "")
 N_READS = int(os.environ.get("MKSSD_BENCH_READS", 200_000))
 READ_LEN = 100
 REPS = int(os.environ.get("MKSSD_BENCH_REPS", 3))
-CPU_REPS = int(os.environ.get("MKSSD_BENCH_CPU_REPS", REPS))
 WORKER_TIMEOUT = int(os.environ.get("MKSSD_BENCH_TIMEOUT", 1500))
 N_SPECIES = int(os.environ.get("MKSSD_BENCH_SPECIES", 4096))
 IDS_PER_SPECIES = 3000
@@ -259,7 +266,7 @@ def _best(key: str, runs: list[float], lower: bool = False) -> dict:
 
 def _leg_sketch(device) -> dict:
     """``dist -A`` of the fastq through the port's ``run_stage1``, on
-    ``device`` and on the CPU."""
+    ``device`` and on the host engine."""
     from metakssd_tpu_torch import pipeline
     from metakssd_tpu_torch.formats.shuf import read_shuf
     from metakssd_tpu_torch.io import native
@@ -270,23 +277,20 @@ def _leg_sketch(device) -> dict:
     opts = pipeline.SketchOptions(abundance=True)
     native.available()                  # build or load the host library
     res = {}
-    for dev in dict.fromkeys([str(device), "cpu"]):
-        if dev != "cpu":
+    for dev in (str(device), "host"):
+        if dev.startswith("cuda"):
             # the card's context, the kernels' library and a first launch
             sketch_cuda.sketch_windows(np.full(1 << 16, 1, np.uint8),
                                        shuf.params, accept_tables(shuf, dev))
         out = os.path.join(CACHE, f"mine_out_{dev.replace(':', '')}")
         runs = []
-        for _ in range(CPU_REPS if dev == "cpu" else REPS):
+        for _ in range(REPS):
             shutil.rmtree(out, ignore_errors=True)
             t0 = time.perf_counter()
             pipeline.run_stage1([fq], shuf, out, opts, device=dev)
             runs.append(N_READS / (time.perf_counter() - t0))
-        res.update(_best("cpu_reads_per_s" if dev == "cpu"
+        res.update(_best("cpu_reads_per_s" if dev == "host"
                          else "reads_per_s", runs))
-    if "reads_per_s" not in res:        # --device cpu: one measurement
-        res.update(reads_per_s=res["cpu_reads_per_s"],
-                   reads_per_s_runs=res["cpu_reads_per_s_runs"])
     res["host_library"] = native.build_kind()
     return res
 
@@ -348,10 +352,11 @@ def _leg_abv(device) -> dict:
     return res
 
 
-def _leg_e2e(device) -> dict:
+def _leg_e2e(device, reference: bool = True) -> dict:
     """fastq -> sketch -> profile -> Poisson, as ``profile`` runs it: one
     cold repeat (no index sidecars on disk), then REPS steady ones.  Every
-    repeat drops the in-process indexes, as a new CLI process would."""
+    repeat drops the in-process indexes, as a new CLI process would.
+    ``reference``: also time the reference tool where it is named."""
     from metakssd_tpu_torch import composite, profile_e2e
     dbdir, _, shufp = _profile_fixture(device)
     fq, _ = _prepare()
@@ -377,6 +382,8 @@ def _leg_e2e(device) -> dict:
            "e2e_cold_total_s": cold["total_s"],
            "e2e_stages": {k: v for k, v in best["stages"].items()
                           if k.startswith("e2e.")}}
+    if not reference:
+        return res
     ref_co = os.path.join(CACHE, "e2e_ref_co")
     ref = _best_ref_s([["dist", "-L", shufp, "-A", "-o", ref_co, fq],
                        ["composite", "-r", dbdir, "-q", ref_co]],
@@ -386,8 +393,15 @@ def _leg_e2e(device) -> dict:
     return res
 
 
+def _leg_e2e_host(device) -> dict:
+    """The e2e leg on the host engine whatever ``device`` is, under the
+    root bench's ``cpu_`` keys."""
+    return {f"cpu_{k}": v for k, v in _leg_e2e("host", False).items()}
+
+
 LEGS = {"sketch": _leg_sketch, "kernel": _leg_kernel,
-        "profile": _leg_profile, "abv": _leg_abv, "e2e": _leg_e2e}
+        "profile": _leg_profile, "abv": _leg_abv, "e2e": _leg_e2e,
+        "e2e_host": _leg_e2e_host}
 
 
 def _worker_main(task: str, device: str) -> int:
@@ -474,12 +488,22 @@ def run(device: str = "cuda", e2e_only: bool = False) -> dict:
             "extra": extra}
 
 
+def _bench_device(name: str) -> str:
+    """``--device``: ``cuda``, ``cuda:N`` or ``cpu``."""
+    if name in ("cuda", "cpu") or re.fullmatch(r"cuda:\d+", name):
+        return name
+    raise argparse.ArgumentTypeError(
+        f"{name!r}: cuda, cuda:N or cpu (the host engine runs under the "
+        "cpu_* keys whatever the device is)")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m metakssd_tpu_torch.bench",
         description="The root bench.py's legs on one device; one JSON line")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default), cuda:N or cpu")
+    ap.add_argument("--device", default="cuda", type=_bench_device,
+                    help="cuda (default), cuda:N or cpu; the host engine's "
+                         "legs run under the cpu_* keys whatever it is")
     ap.add_argument("--e2e", action="store_true",
                     help="the end-to-end profile leg alone")
     ap.add_argument("--worker", nargs=2, metavar=("LEG", "DEVICE"),

@@ -1,5 +1,5 @@
 """Command line of the port: every verb of ``metakssd_tpu.cli`` on a CUDA
-device or, explicitly, on the CPU.
+device or, explicitly, on the CPU or the host engine.
 
     python -m metakssd_tpu_torch.cli shuffle -k 11 -s 6 -l 3 -o L3K11
     python -m metakssd_tpu_torch.cli dist -L L3K11.shuf -o sketches genomes/
@@ -17,8 +17,10 @@ device or, explicitly, on the CPU.
 
 Flags follow ``metakssd_tpu.cli`` (and so the reference wrappers,
 command_dist_wrapper.c:32-96, command_set.c:24-68,
-command_composite.c:32-63).  ``--device`` is ``cuda`` (default) or
-``cpu``; ``cpu`` runs the plain PyTorch version of every kernel.  The
+command_composite.c:32-63).  ``--device`` is ``cuda`` (default), ``cpu``
+or ``host``: ``cpu`` runs the plain PyTorch version of every kernel,
+``host`` the JAX package's native host engine where it has one and the
+plain versions elsewhere (``device.py``).  The
 verbs that do host work only (``shuffle``, ``reverse``, ``postprocess``,
 ``primer``) take no ``--device``; their handlers are copied from
 ``metakssd_tpu.cli``.  ``--mesh N`` sketches over N data shards and
@@ -250,9 +252,16 @@ def _cmd_reverse(args) -> int:
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+    p.add_argument("--device", choices=("cuda", "cpu", "host"),
+                   default="cuda",
                    help="cuda runs the CUDA kernels; cpu runs their plain "
-                        "PyTorch versions (default cuda)")
+                        "PyTorch versions on the CPU; host runs the native "
+                        "C++ host engine (sketch, radix-sort unions, "
+                        "postings) and numpy membership where the JAX "
+                        "package runs them on a host without an "
+                        "accelerator, the plain versions elsewhere, never "
+                        "initialises CUDA, and fails without the host "
+                        "library (default cuda)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -507,10 +516,13 @@ def main(argv: list[str] | None = None) -> int:
     if os.environ.get("MKSSD_COORDINATOR"):
         # a multi-process launch: join before any device work; a dead or
         # malformed coordinator is a one-line error, not a hang
+        from metakssd_tpu_torch.device import engine, resolve_device
         from metakssd_tpu_torch.parallel import mesh as pmesh
+        device = getattr(args, "device", None)
         try:
+            # the host engine's ranks join as the CPU's do (gloo)
             joined = pmesh.init_distributed(
-                device=getattr(args, "device", None))
+                device=resolve_device(device) if engine(device) else device)
         except RuntimeError as e:
             print(f"metakssd_tpu_torch: {e}", file=sys.stderr)
             return 1

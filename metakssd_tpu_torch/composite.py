@@ -12,8 +12,13 @@ component's distinct k-mers go onto N db shards as a
 ``parallel/mesh.ShardedMatchIndex``, K3 matches the query ids there, and
 the host expands the postings and takes the statistics (the native
 ``postings_group_stats``, else numpy and ``_profile_stats``), as the JAX
-package's ``shard_db`` route does.  The report lines and the ``binvec``
-vectors are formatted as the JAX package formats them, byte for byte.
+package's ``shard_db`` route does.  On ``"host"`` (``shard_db`` 0) nothing
+is staged on a device: each component's ``_CompIndex.match`` finds the
+query ids by ``np.searchsorted`` and expands their postings with the
+native ``postings_expand``, and ``postings_group_stats`` takes the
+statistics, the JAX package's host route (``composite.py:103-125``).  The
+report lines and the ``binvec`` vectors are formatted as the JAX package
+formats them, byte for byte.
 
 ``index_abv``, ``abv_search`` and ``read_abv`` (``-i``, ``-s``, ``-d``)
 are host work, copied from the JAX package; ``ops/dense_abv.py`` is the
@@ -31,13 +36,14 @@ import time
 
 import numpy as np
 
-from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.device import engine, resolve_device
 from metakssd_tpu_torch.formats.abv import (BINVEC_DIRNAME, AbvIndex,
                                             read_abv_file, write_abv_file)
 from metakssd_tpu_torch.formats.codir import CoDir
 from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.formats.mco import save_npy_direct
 from metakssd_tpu_torch.io import native as native_io
+from metakssd_tpu_torch.ops.merge import host_membership
 from metakssd_tpu_torch.params import MIN_KM_S
 from metakssd_tpu_torch.parallel import mesh as pmesh
 from metakssd_tpu_torch.state import profile_index_from_staged
@@ -125,6 +131,20 @@ class _CompIndex:
             self.starts = np.empty(self.rk.size + 1, dtype=np.int64)
             self.starts[:-1] = starts
             self.starts[-1] = sk.size
+
+    def match(self, qids_s: np.ndarray, qab_s: np.ndarray
+              ) -> tuple[np.ndarray, np.ndarray]:
+        """(genome int32, abundance uint16) of every posting whose k-mer
+        is among the sorted query ids ``qids_s``, with that id's abundance
+        from ``qab_s``: membership by ``np.searchsorted``, the expansion by
+        the native ``postings_expand`` (``--device host``)."""
+        member, pos = host_membership(self.rk, qids_s)
+        rows = pos[member].astype(np.int64)
+        total = int((self.starts[rows + 1] - self.starts[rows]).sum())
+        if total == 0:
+            return np.zeros(0, np.int32), np.zeros(0, np.uint16)
+        return native_io.postings_expand(rows, self.starts, self.gid_sorted,
+                                         qab_s[member], total)
 
 
 _STAGE_DIRNAME = ".mkssd_stage"
@@ -266,7 +286,8 @@ def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
     """Profile query metagenome sketches against a MarkerDB
     (reference get_species_abundance, command_composite.c:446-649).
     ``shard_db`` N >= 1 matches on N db shards with K3 and takes the
-    statistics on the host."""
+    statistics on the host; ``"host"`` matches on the host."""
+    host = engine(device) and not shard_db
     dev = resolve_device(device)
     out = out or sys.stdout
     with TIMER.stage("composite.load"):
@@ -279,7 +300,11 @@ def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
               f"not match ref shuf_id: {ref.stat.shuf_id}", file=sys.stderr)
 
     nref = ref.stat.infile_num
-    index = _staged_index(refdir, ref, dev, shard_db)
+    if host:
+        with TIMER.stage("composite.stage_markerdb"):
+            index = stage_markerdb(refdir, ref)
+    else:
+        index = _staged_index(refdir, ref, dev, shard_db)
     TIMER.count("composite.queries", qry.stat.infile_num)
     TIMER.count("composite.refs", nref)
 
@@ -291,9 +316,9 @@ def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
             qab = qry.genome_abund(c, qn)
             order = np.argsort(qids, kind="stable")
             pcq.append((qids[order], qab[order]))
-        if shard_db:
-            # K3 matches each component's ids; the host expands the
-            # postings and takes the statistics
+        if shard_db or host:
+            # K3 (or the host) matches each component's ids; the host
+            # expands the postings and takes the statistics
             matched = [index[c].match(qids_s, qab_s)
                        for c, (qids_s, qab_s) in enumerate(pcq)
                        if qids_s.size and index[c] is not None]

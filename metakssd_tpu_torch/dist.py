@@ -6,8 +6,11 @@ dir, each component's sorted distinct reference k-mers are staged on the
 device once with K3's index (``state.haystack_from_inverted``), and the
 queries' k-mers of that component are searched in it by one K3 call
 (``ops/merge.py``) per MAX_NEEDLES of them, at query boundaries; each
-query's matched rows' postings are counted on the host.  Against an mco dir the counts come from the host mmap route,
-which runs no kernel.  That route, the options, the statistics and the
+query's matched rows' postings are counted on the host.  On ``"host"``
+the membership is ``np.searchsorted`` in the sorted k-mers
+(``merge.host_membership``), as in the JAX package's host route.  Against
+an mco dir the counts come from the host mmap route, which runs no
+kernel.  That route, the options, the statistics and the
 file formats are copied from the JAX package: ``distance.out`` and
 ``sharedk_ct.dat`` are byte-identical to
 ``metakssd_tpu.dist.run_dist_search``'s.
@@ -21,7 +24,7 @@ import os
 
 import numpy as np
 
-from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.device import engine, resolve_device
 from metakssd_tpu_torch.formats import mco as mco_fmt
 from metakssd_tpu_torch.formats.codir import CoDir, _mmap_or_empty
 from metakssd_tpu_torch.formats.costat import CoStat, McoStat
@@ -164,6 +167,7 @@ def shared_kmer_matrix(ref: CoDir | str, qry: CoDir | str, *, device,
     if isinstance(ref, str):
         ref = CoDir.read(ref, want_abund=False)
     _check_compat(ref.stat.shuf_id, ref.stat.comp_num, qry.stat)
+    host = engine(device)
     dev = resolve_device(device)
     num_refs = ref.stat.infile_num
     if out is None:
@@ -174,7 +178,7 @@ def shared_kmer_matrix(ref: CoDir | str, qry: CoDir | str, *, device,
         bnd = qry.index[c].astype(np.int64)
         if inv.kmers.size == 0 or bnd[-1] == bnd[0]:
             continue
-        hay = haystack_from_inverted(inv, dev)
+        hay = None if host else haystack_from_inverted(inv, dev)
         offs = inv.offsets.astype(np.int64)
         q0 = 0
         while q0 < nq:
@@ -184,8 +188,10 @@ def shared_kmer_matrix(ref: CoDir | str, qry: CoDir | str, *, device,
             q1 = max(q0 + 1, int(np.searchsorted(
                 bnd, bnd[q0] + MAX_NEEDLES, side="right")) - 1)
             if bnd[q1] > bnd[q0]:
-                member, pos = merge.sorted_membership(
-                    hay, None, qry.ids[c][bnd[q0]:bnd[q1]])
+                needles = qry.ids[c][bnd[q0]:bnd[q1]]
+                member, pos = merge.host_membership(inv.kmers, needles) \
+                    if hay is None else \
+                    merge.sorted_membership(hay, None, needles)
                 for q in range(q0, q1):
                     lo, hi = bnd[q] - bnd[q0], bnd[q + 1] - bnd[q0]
                     if hi == lo:
@@ -366,7 +372,7 @@ def run_dist_search(ref_path: str, qry_path: str, outdir: str,
         else:
             matrix = np.zeros((qnum, rnum), dtype=np.uint32)
         with TIMER.stage("dist.shared_counts"):
-            shared_kmer_matrix(ref_path, qry, device=dev, out=matrix)
+            shared_kmer_matrix(ref_path, qry, device=device, out=matrix)
         if isinstance(matrix, np.memmap):
             matrix.flush()
         else:

@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ host library (``native/*.cpp`` at
-the repo root): the sequence parser and the posting passes.  The port's
-copy of ``metakssd_tpu/io/native.py``.
+the repo root): the sequence parser, the sketch engine and the posting
+passes.  The port's copy of ``metakssd_tpu/io/native.py``.
 
 The library builds on first use from the shared sources, with the flags
 of ``native/Makefile``, into ``metakssd_tpu_torch/_build/`` under a name
@@ -10,8 +10,11 @@ refuses ``-fopenmp``) it is tried once more without ``-fopenmp``: the
 sources guard every OpenMP call with ``#ifdef _OPENMP``, so the serial
 build gives the same results on one thread.  ``build_kind()`` says which
 one loaded.  When no compiler can build it, every caller takes its numpy
-route (``MKSSD_NO_NATIVE=1`` forces that).  Host code only: no device
-work hides behind it.
+route (``MKSSD_NO_NATIVE=1`` forces that), except ``--device host``,
+which runs on the library: its engine (``sketch_cpu``, ``sketch_fastq``,
+``radix_sort_u32``, ``postings_expand``) raises without it (``require``),
+and nothing runs the plain versions in its place.  Host code only: no
+device work hides behind it.
 """
 
 from __future__ import annotations
@@ -104,9 +107,14 @@ def _load():
     if so is None:
         return None
     try:
-        lib = ctypes.CDLL(so)
+        _lib = _bind(ctypes.CDLL(so))
     except OSError:
         return None
+    return _lib
+
+
+def _bind(lib):
+    """``lib`` with the argument and result types of every entry point."""
     lib.fastseq_set_threads.restype = None
     lib.fastseq_set_threads.argtypes = [ctypes.c_int]
     lib.fastseq_parse_fasta.restype = ctypes.c_void_p
@@ -135,6 +143,33 @@ def _load():
     lib.fastseq_stream_starts_ptr.argtypes = [ctypes.c_void_p]
     lib.fastseq_stream_close.restype = None
     lib.fastseq_stream_close.argtypes = [ctypes.c_void_p]
+    lib.sketch_cpu_run.restype = ctypes.c_int64
+    lib.sketch_cpu_run.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64))]
+    lib.sketch_cpu_free.restype = None
+    lib.sketch_cpu_free.argtypes = [ctypes.POINTER(ctypes.c_uint64)]
+    lib.fastseq_sketch_file.restype = ctypes.c_int64
+    lib.fastseq_sketch_file.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64))]
+    lib.postings_expand_i32.restype = None
+    lib.postings_expand_i32.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint16)]
+    lib.k_radix_sort_u32.restype = None
+    lib.k_radix_sort_u32.argtypes = [
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint32)]
     lib.postings_count_u32.restype = None
     lib.postings_count_u32.argtypes = [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
@@ -176,12 +211,23 @@ def _load():
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_double),
         ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
-    _lib = lib
-    return _lib
+    return lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def require():
+    """The loaded library; raises RuntimeError where none could be built
+    or loaded (``--device host`` runs on it and on nothing else)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            "--device host needs the native host library, which could not "
+            "be built or loaded (MKSSD_NO_NATIVE=1, or no C++ compiler); "
+            "--device cpu runs the plain versions")
+    return lib
 
 
 def _copy_out(ptr, n, dtype):
@@ -276,10 +322,109 @@ def stream_fastq(path: str, min_qual: int = 0,
         lib.fastseq_stream_close(h)
 
 
+def _accept_args(shuf, accept):
+    """The accept tables as ctypes arguments (tups, pfilters, count,
+    bitmask), from ``accept`` or ``shuf.device_tables()``, and the arrays
+    behind them, which must outlive the call."""
+    if accept is None:
+        accept = shuf.device_tables()
+    tups = np.ascontiguousarray(accept[0], dtype=np.uint32)
+    pf = np.ascontiguousarray(accept[1], dtype=np.uint32)
+    mask = np.ascontiguousarray(
+        accept[2] if len(accept) > 2 else shuf.accept_bitmask(),
+        dtype=np.uint32)
+    u32 = ctypes.POINTER(ctypes.c_uint32)
+    return (tups.ctypes.data_as(u32), pf.ctypes.data_as(u32),
+            ctypes.c_int64(tups.size), mask.ctypes.data_as(u32)), \
+        (tups, pf, mask)
 
 
+def _take_drtuples(lib, out_ptr, n: int) -> np.ndarray:
+    dr = _copy_out(out_ptr, n, np.uint64)
+    if out_ptr:
+        lib.sketch_cpu_free(out_ptr)
+    return dr
 
 
+def sketch_cpu(codes: np.ndarray, shuf, accept=None,
+               nthreads: int = 0) -> np.ndarray:
+    """All accepted drtuples of a code stream (duplicates kept, unsorted)
+    from the native sketcher (``native/sketch_cpu.cpp``), bit-identical to
+    ``golden.window_drtuples`` up to order.  ``nthreads`` <= 0 takes the
+    OpenMP default; the serial build runs one thread whatever it says.
+    Raises without the library."""
+    lib = require()
+    p = shuf.params
+    args, _keep = _accept_args(shuf, accept)
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    out_ptr = ctypes.POINTER(ctypes.c_uint64)()
+    n = lib.sketch_cpu_run(
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(codes.size), p.k, p.subk, p.drlevel, *args,
+        int(nthreads), ctypes.byref(out_ptr))
+    return _take_drtuples(lib, out_ptr, n)
+
+
+def sketch_fastq(path: str, shuf, accept=None, min_qual: int = 0,
+                 nthreads: int = 0) -> np.ndarray:
+    """All accepted drtuples of a fastq file (duplicates kept, unsorted)
+    from the fused native parse, translate and sketch
+    (``fastseq_sketch_file``): the file's codes never exist whole.  The
+    same multiset as ``stream_fastq`` + ``sketch_cpu``.  Raises
+    RuntimeError without the library, OSError where the file cannot be
+    read."""
+    lib = require()
+    p = shuf.params
+    args, _keep = _accept_args(shuf, accept)
+    out_ptr = ctypes.POINTER(ctypes.c_uint64)()
+    n_reads, n_bases = ctypes.c_int64(), ctypes.c_int64()
+    n = lib.fastseq_sketch_file(
+        path.encode(), int(min_qual), p.k, p.subk, p.drlevel, *args,
+        int(nthreads), ctypes.byref(n_reads), ctypes.byref(n_bases),
+        ctypes.byref(out_ptr))
+    if n < 0:
+        raise OSError(f"fastseq: cannot open or decode {path}")
+    return _take_drtuples(lib, out_ptr, n)
+
+
+def radix_sort_u32(keys: np.ndarray) -> None:
+    """Sort a contiguous uint32 array in place (the native parallel LSD
+    radix sort).  Raises without the library."""
+    lib = require()
+    if keys.dtype != np.uint32 or not keys.flags.c_contiguous:
+        raise ValueError("radix_sort_u32: need a contiguous uint32 "
+                         f"array, got {keys.dtype}")
+    lib.k_radix_sort_u32(
+        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        ctypes.c_int64(keys.size),
+        np.empty_like(keys).ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+
+
+def postings_expand(rows: np.ndarray, starts: np.ndarray,
+                    gids: np.ndarray, ab: np.ndarray | None, total: int):
+    """(genome int32 [total], abundance uint16 [total] or None): the
+    postings ``starts[r] .. starts[r + 1]`` of every matched row r in
+    turn, each with its row's ``ab`` entry; ``total`` is their count.
+    Raises without the library."""
+    lib = require()
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    gids = np.ascontiguousarray(gids, dtype=np.int32)
+    out_gid = np.empty(total, dtype=np.int32)
+    out_ab = ab_ptr = ab_out_ptr = None
+    if ab is not None:
+        ab = np.ascontiguousarray(ab, dtype=np.uint16)
+        out_ab = np.empty(total, dtype=np.uint16)
+        ab_ptr = ab.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+        ab_out_ptr = out_ab.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+    lib.postings_expand_i32(
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(rows.size),
+        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        gids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ab_ptr, out_gid.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ab_out_ptr)
+    return out_gid, out_ab
 
 
 def format_name_float_lines(names_blob: bytes, name_off: np.ndarray,

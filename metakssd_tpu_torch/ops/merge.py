@@ -327,3 +327,18 @@ def sorted_membership(haystack, values, needles
     nd = u32_tensor(needles).to(haystack.device)
     m, v = member(haystack.hay, haystack.values, nd, haystack.index)
     return m.cpu().numpy().astype(bool), v.cpu().numpy().view(np.uint32)
+
+
+def host_membership(haystack, needles) -> tuple[np.ndarray, np.ndarray]:
+    """(member bool [n], position uint32 [n], 0 on a miss) of each needle
+    in the sorted uint32 ``haystack`` by ``np.searchsorted``: the host
+    route of ``metakssd_tpu.ops.merge.sorted_membership``
+    (``merge.py:105-114``) in identity mode, which ``--device host``
+    takes.  No kernel and no torch."""
+    haystack = np.asarray(haystack, dtype=np.uint32)
+    needles = np.asarray(needles, dtype=np.uint32)
+    if haystack.size == 0 or needles.size == 0:
+        return np.zeros(needles.size, bool), np.zeros(needles.size, np.uint32)
+    pos = np.minimum(np.searchsorted(haystack, needles), haystack.size - 1)
+    hit = haystack[pos] == needles
+    return hit, np.where(hit, pos, 0).astype(np.uint32)

@@ -7,6 +7,10 @@ of at most MAX_ACCEPT entries runs the K1/K2 chunk loop
 their plain PyTorch versions on the CPU.  Wider configs, or larger
 tables, go through the numpy model ``ops/golden.py`` (copied from
 ``metakssd_tpu/ops/golden.py``), as the JAX package does for k - drlevel > 8 (``sketch_xla.py:312-318``).
+
+With ``host`` (``device.engine``'s answer for the shuffle) the native
+host engine runs (``io/native.sketch_cpu``), as the JAX package does where
+its backend policy answers ``"cpu"`` (``sketch_xla.py:320-325``).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.io import native
 from metakssd_tpu_torch.ops import golden, sketch_cuda
 from metakssd_tpu_torch.ops.golden import sets_from_drtuples
 from metakssd_tpu_torch.state import AcceptTables, accept_tables
@@ -42,12 +47,18 @@ def _windows(codes, shuf, device, tables, want_pos, devices=None, **kw):
 
 
 def sketch_codes(codes: np.ndarray, shuf, device,
-                 tables: AcceptTables | None = None, **kw) -> np.ndarray:
+                 tables: AcceptTables | None = None, *, host: bool = False,
+                 **kw) -> np.ndarray:
     """All accepted drtuples of a code stream, sorted uint64 with
     duplicates kept (``sketch_xla.sketch_codes``).  ``kw`` reaches the
     chunk loop (``chunk_windows``, ``capacity``, ``devices``); a device
     with an index (``cuda:N``) keeps every chunk, plain ``cuda`` lets
-    them spread over every visible card."""
+    them spread over every visible card.  ``host``: the native engine
+    (``device.engine``)."""
+    if host:
+        dr = native.sketch_cpu(codes, shuf)
+        dr.sort()
+        return dr
     if not on_device_path(shuf):
         return np.sort(golden.window_drtuples(codes, shuf))
     dr, _ = _windows(codes, shuf, device, tables, False, **kw)
@@ -68,8 +79,9 @@ def sketch_codes_with_positions(codes: np.ndarray, shuf, device,
 
 
 def sketch_to_sets(codes: np.ndarray, shuf, device, mode: str = "set",
-                   min_occ: int = 1, tables: AcceptTables | None = None):
+                   min_occ: int = 1, tables: AcceptTables | None = None,
+                   *, host: bool = False):
     """Per-component (ids, counts) of a code stream
     (``sketch_xla.sketch_to_sets``)."""
-    dr = sketch_codes(codes, shuf, device, tables)
+    dr = sketch_codes(codes, shuf, device, tables, host=host)
     return sets_from_drtuples(dr, shuf.params, mode=mode, min_occ=min_occ)

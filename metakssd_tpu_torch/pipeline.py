@@ -9,6 +9,14 @@ window sketch runs through ``ops/sketch.py`` on the named device, or with
 ``--mesh N`` through ``parallel/mesh.sharded_sketch`` over N shards.  The
 output directory is byte-identical to ``metakssd_tpu.pipeline.run_stage1``'s
 for the same inputs.
+
+On ``"host"`` stage I takes the JAX package's host engine where that
+package takes it (``metakssd_tpu/pipeline.py:125-135,280-294``): each of
+several files through ``native.sketch_cpu`` on one thread inside the
+``-p`` pool, one fastq without ``--ckpt`` through the fused
+``native.sketch_fastq``, and every other stream through ``sketch_cpu``
+(``ops/sketch.sketch_codes``).  ``--byread``, ``--mesh`` and configs with
+k - drlevel > 8 run as on ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ import shutil
 
 import numpy as np
 
-from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.device import engine, resolve_device
 from metakssd_tpu_torch.formats.codir import write_codir
 from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.formats.shuf import (DimShuffle, make_shuf,
@@ -121,7 +129,8 @@ def _ckpt_load(ckpt_file: str, key: dict):
 
 def _sketch_fastq_streaming(path: str, shuf, mode: str, min_occ: int,
                             min_qual: int, device, tables,
-                            ckpt_file: str | None = None):
+                            ckpt_file: str | None = None, threads: int = 0,
+                            host: bool = False):
     """Sketch a fastq of any size with O(batch) host memory: fixed-size
     read batches from the native parser go to the device one at a time,
     each batch's accepted drtuples accumulate, and unique/count runs once
@@ -131,7 +140,17 @@ def _sketch_fastq_streaming(path: str, shuf, mode: str, min_occ: int,
     With ``ckpt_file``, the accumulated drtuples persist every
     CKPT_EVERY batches; a restart parses the batches already sketched
     again but skips their sketch.  The snapshot's keys are the JAX
-    package's, so either package resumes the other's."""
+    package's, so either package resumes the other's.
+
+    With ``host`` (the native engine) and no ``ckpt_file`` the fused
+    native parse and sketch takes the whole file on ``threads`` threads
+    (0: OpenMP's default); with ``ckpt_file`` each batch goes through
+    ``native.sketch_cpu``."""
+    if ckpt_file is None and host:
+        dr = native.sketch_fastq(path, shuf, min_qual=min_qual,
+                                 nthreads=threads)
+        return sets_from_drtuples(dr, shuf.params, mode=mode,
+                                  min_occ=min_occ)
     key = _ckpt_key(path, shuf, mode, min_qual)
     done = 0
     parts = []
@@ -144,7 +163,8 @@ def _sketch_fastq_streaming(path: str, shuf, mode: str, min_occ: int,
             path, min_qual, STREAM_BATCH_BASES, copy=False)):
         if i < done:
             continue
-        parts.append(sketch.sketch_codes(codes, shuf, device, tables))
+        parts.append(sketch.sketch_codes(codes, shuf, device, tables,
+                                         host=host))
         if ckpt_file and (i + 1 - done) % CKPT_EVERY == 0:
             _ckpt_save(ckpt_file, {"key": np.str_(json.dumps(key)),
                                    "done": np.int64(i + 1),
@@ -156,11 +176,12 @@ def _sketch_fastq_streaming(path: str, shuf, mode: str, min_occ: int,
 
 
 def sketch_file(path: str, shuf, opts: SketchOptions, device, tables=None,
-                ckpt_file: str | None = None
+                ckpt_file: str | None = None, *, host: bool = False
                 ) -> list[tuple[np.ndarray, np.ndarray | None]]:
     """Sketch one input file into per-component (ids, counts).  With
     ``opts.mesh`` > 1 the whole file's code stream is sketched over that
-    many data shards (``parallel/mesh.sharded_sketch``), never streamed."""
+    many data shards (``parallel/mesh.sharded_sketch``), never streamed.
+    ``host``: the native engine sketches (``device.engine``)."""
 
     def sets(codes, mode):
         if opts.mesh > 1:
@@ -170,7 +191,8 @@ def sketch_file(path: str, shuf, opts: SketchOptions, device, tables=None,
             return sets_from_drtuples(dr, shuf.params, mode=mode,
                                       min_occ=opts.min_occ)
         return sketch.sketch_to_sets(codes, shuf, device, mode=mode,
-                                     min_occ=opts.min_occ, tables=tables)
+                                     min_occ=opts.min_occ, tables=tables,
+                                     host=host)
 
     if opts.pipecmd:
         # reference treats piped input as fastq (command_dist.c:378)
@@ -184,7 +206,8 @@ def sketch_file(path: str, shuf, opts: SketchOptions, device, tables=None,
         q = 0 if opts.abundance else opts.min_qual
         if opts.mesh <= 1 and native.available():
             return _sketch_fastq_streaming(path, shuf, mode, opts.min_occ,
-                                           q, device, tables, ckpt_file)
+                                           q, device, tables, ckpt_file,
+                                           opts.threads, host)
         codes, _ = seqio.fastq_to_codes(path, min_qual=q)
         return sets(codes, mode)
     return sets(seqio.fasta_to_codes(path), "uniq" if opts.dedup else "set")
@@ -232,11 +255,25 @@ def sketch_byread(path: str, shuf, out_dir: str, *, device, **kw) -> None:
            names=[path]).write(out_dir)
 
 
-def _batched_stage1(inputs: list[str], shuf, opts: SketchOptions, koc: bool,
-                    device, tables):
+def _set_mode(fastq: bool, opts: SketchOptions) -> str:
+    """How one input of a batched run becomes its sets
+    (``sets_from_drtuples``): counts for ``-A``, a fasta's once-seen
+    k-mers for dedup, a fastq's k-mers seen ``min_occ`` times, else every
+    k-mer."""
+    if opts.abundance:
+        return "koc"
+    if opts.dedup and not fastq:
+        return "uniq"
+    return "occ" if fastq and opts.min_occ > 1 else "set"
+
+
+def _batched_stage1(inputs: list[str], shuf, opts: SketchOptions, device,
+                    tables, host: bool = False):
     """Sketch many inputs in one device stream: files concatenate
     (RESET-separated), survivors are attributed to files by window
-    position, then unique/count per file on the host."""
+    position, then unique/count per file on the host.  With ``host``
+    each file is parsed and sketched by ``native.sketch_cpu`` on one
+    thread inside the ``-p`` pool instead."""
     p = shuf.params
 
     def _parse(path: str) -> np.ndarray:
@@ -245,16 +282,26 @@ def _batched_stage1(inputs: list[str], shuf, opts: SketchOptions, koc: bool,
             return seqio.fastq_to_codes(path, min_qual=q)[0]
         return seqio.fasta_to_codes(path)
 
-    # host parse pool (-p): the native parser releases the GIL inside
-    # its ctypes call, so threads parse files in parallel
+    def _sets(path: str, dr: np.ndarray):
+        mode = _set_mode(seqio.sniff_format(path) == "fastq", opts)
+        return sets_from_drtuples(dr, p, mode=mode, min_occ=opts.min_occ)
+
+    def _host_sets(path: str):
+        return _sets(path, native.sketch_cpu(_parse(path), shuf, nthreads=1))
+
+    # host pool (-p): the native parser and sketcher release the GIL
+    # inside their ctypes calls, so threads work on files in parallel
     nthreads = opts.threads if opts.threads > 0 else (os.cpu_count() or 1)
     nthreads = min(nthreads, len(inputs))
+    work = _host_sets if host else _parse
     if nthreads > 1:
         from concurrent.futures import ThreadPoolExecutor
         with ThreadPoolExecutor(max_workers=nthreads) as pool:
-            parsed = list(pool.map(_parse, inputs))
+            parsed = list(pool.map(work, inputs))
     else:
-        parsed = [_parse(path) for path in inputs]
+        parsed = [work(path) for path in inputs]
+    if host:
+        return parsed
 
     chunks: list[np.ndarray] = []
     bounds = np.zeros(len(inputs) + 1, dtype=np.int64)
@@ -267,25 +314,7 @@ def _batched_stage1(inputs: list[str], shuf, opts: SketchOptions, koc: bool,
     del chunks
     dr, pos = sketch.sketch_codes_with_positions(codes, shuf, device, tables)
     gid = np.searchsorted(bounds, pos, side="right") - 1
-    per_genome = []
-    for g in range(len(inputs)):
-        fmt_fastq = seqio.sniff_format(inputs[g]) == "fastq"
-        mine = np.sort(dr[gid == g])
-        uniq, counts = np.unique(mine, return_counts=True)
-        ab = None
-        if koc:
-            ab = np.minimum(counts, 0xFFFF).astype(np.uint16)
-        elif opts.dedup and not fmt_fastq:
-            uniq = uniq[counts == 1]
-        elif fmt_fastq and opts.min_occ > 1:
-            uniq = uniq[counts >= opts.min_occ]
-        comp = (uniq % np.uint64(p.component_num)).astype(np.int64)
-        ids = (uniq >> np.uint64(p.comp_code_bits)).astype(np.uint32)
-        per_genome.append([
-            (ids[comp == ci],
-             ab[comp == ci] if ab is not None else None)
-            for ci in range(p.component_num)])
-    return per_genome
+    return [_sets(path, dr[gid == g]) for g, path in enumerate(inputs)]
 
 
 def _file_ckpt_path(ckpt_dir: str, i: int) -> str:
@@ -340,10 +369,11 @@ def run_stage1(inputs: list[str], shuf, out_dir: str,
     batches in ``stream{i}.ckpt``); a rerun after a crash resumes from
     them, and the directory goes once the sketch dir is written."""
     opts = opts or SketchOptions()
+    host = engine(device, shuf)
     dev = resolve_device(device)
     p = shuf.params
     tables = accept_tables(shuf, dev) if sketch.on_device_path(shuf) \
-        else None
+        and not host else None
 
     koc = opts.abundance
     if koc and any(seqio.sniff_format(f) != "fastq" for f in inputs):
@@ -382,7 +412,7 @@ def run_stage1(inputs: list[str], shuf, out_dir: str,
             for lo in range(0, len(todo), max(group, 1)):
                 idx = todo[lo:lo + group]
                 got = _batched_stage1([inputs[i] for i in idx], shuf, opts,
-                                      koc, dev, tables)
+                                      dev, tables, host)
                 for i, sets in zip(idx, got):
                     per_genome[i] = sets
                     persist(i, sets)
@@ -393,7 +423,7 @@ def run_stage1(inputs: list[str], shuf, out_dir: str,
                 sck = (os.path.join(ckpt_dir, f"stream{i}.ckpt")
                        if ckpt_dir else None)
                 per_genome[i] = sketch_file(path, shuf, opts, dev, tables,
-                                            ckpt_file=sck)
+                                            ckpt_file=sck, host=host)
                 persist(i, per_genome[i])
 
     ctx_ct = np.array(

@@ -206,10 +206,12 @@ def make_set_data(work: str, seed: int):
     return co, taxf, int(flat.size)
 
 
-def set_leg(work: str, dev: str, co: str, taxf: str) -> str:
+def set_leg(work: str, dev: str, co: str, taxf: str,
+            secs: dict | None = None) -> str:
     """set -g -> -q -> -i (the MarkerDB chain), then -u, -s and -c, on
     ``dev``, in a dir of its own with outputs named relative to it (so
-    the names that -c records are the same on both devices)."""
+    the names that -c records are the same on both devices); each verb's
+    seconds go into ``secs``."""
     wd = os.path.join(work, f"set_{dev}")
     os.makedirs(wd)
     here = os.getcwd()
@@ -221,8 +223,10 @@ def set_leg(work: str, dev: str, co: str, taxf: str) -> str:
                            ("-u", ["-u", "-o", "u", co]),
                            ("-s", ["-s", "uq", "-o", "s", co]),
                            ("-c", ["-c", "-o", "c", "u", "uq"])):
-            run_cli(f"set {verb} --device {dev}",
-                     ["set", *argv, "--device", dev])
+            dt = run_cli(f"set {verb} --device {dev}",
+                         ["set", *argv, "--device", dev])
+            if secs is not None:
+                secs[verb] = dt
     finally:
         os.chdir(here)
     return wd

@@ -16,9 +16,13 @@
   ``print_gnames`` (-P) do host work only and are copied from the JAX
   package.
 
-The device is explicit (``"cuda"`` or ``"cpu"``): the JAX package's
-``MKSSD_DEVICE_SETOPS`` switch, its 4M-id floor and its backend policy do
-not carry over.  Every file is byte-identical to ``metakssd_tpu.setops``'s.
+The device is explicit (``"cuda"``, ``"cpu"`` or ``"host"``): the JAX
+package's ``MKSSD_DEVICE_SETOPS`` switch, its 4M-id floor and its backend
+policy do not carry over.  ``"host"`` takes the JAX package's host routes:
+the unions through ``host_unique`` (the native radix sort from 2^20 ids),
+``-s/-i`` membership through ``np.searchsorted``
+(``merge.host_membership``); ``-g`` runs as on ``"cpu"``.  Every file is
+byte-identical to ``metakssd_tpu.setops``'s.
 """
 
 from __future__ import annotations
@@ -29,41 +33,75 @@ import os
 import numpy as np
 import torch
 
-from metakssd_tpu_torch.device import resolve_device
+from metakssd_tpu_torch.device import engine, resolve_device
 from metakssd_tpu_torch.formats.codir import (IDX_PREFIX, PAN_PREFIX,
                                               SKCH_PREFIX, UNIQ_PAN_PREFIX,
                                               CoDir)
 from metakssd_tpu_torch.formats.costat import CoStat
+from metakssd_tpu_torch.io import native
 from metakssd_tpu_torch.ops import merge
 from metakssd_tpu_torch.ops.sketch_cuda import _as_u32_bits
 from metakssd_tpu_torch.params import LD_FCTR
 from metakssd_tpu_torch.parallel.mesh import device_union, make_mesh
-from metakssd_tpu_torch.utils import TIMER
+from metakssd_tpu_torch.utils import TIMER, sorted_first_idx
 
 _LOW32 = 0xFFFFFFFF
+# ids from which host_unique sorts by the native radix sort
+# (metakssd_tpu/setops.py:67)
+HOST_RADIX_MIN = 1 << 20
+
+
+def host_unique(ids: np.ndarray, return_counts: bool):
+    """``np.unique`` of ``ids`` on the host: the native radix sort and one
+    boundary pass from HOST_RADIX_MIN ids, where the ids are at most 32
+    bits wide (wider ones would merge ids sharing their low 32 bits), else
+    ``np.unique`` (``metakssd_tpu.setops._host_unique``)."""
+    ids = np.asarray(ids)
+    if ids.size < HOST_RADIX_MIN or ids.dtype.itemsize > 4:
+        return np.unique(ids, return_counts=return_counts)
+    sk = np.empty(ids.size, np.uint32)
+    np.copyto(sk, ids, casting="unsafe")
+    native.radix_sort_u32(sk)
+    idx = sorted_first_idx(sk)
+    vals = sk[idx]
+    if not return_counts:
+        return vals
+    counts = np.empty(idx.size, np.int64)
+    counts[:-1] = np.diff(idx)
+    counts[-1] = sk.size - idx[-1]
+    return vals, counts
+
+
+def _union_on(device):
+    """The union verbs' unique for ``device``: ``host_unique`` where the
+    host engine takes them, else ``device_union`` on a one-device mesh."""
+    if engine(device):
+        return host_unique
+    mesh = make_mesh(None, 1, device)
+    return lambda ids, counts: device_union(ids, mesh, return_counts=counts)
 
 
 def sketch_union(insketch: str, outdir: str, *, device) -> None:
     """-u: the union of all sketches -> ``pan.c``."""
-    mesh = make_mesh(None, 1, device)
+    union = _union_on(device)
     with TIMER.stage("set.union"):
         cd = CoDir.read(insketch, want_abund=False)
         os.makedirs(outdir, exist_ok=True)
         cd.stat.write(outdir)
         for c in range(cd.stat.comp_num):
-            device_union(cd.ids[c], mesh).tofile(
+            union(cd.ids[c], False).tofile(
                 os.path.join(outdir, f"{PAN_PREFIX}.{c}"))
 
 
 def uniq_sketch_union(insketch: str, outdir: str, *, device) -> None:
     """-q: the k-mers present in exactly one genome -> ``uniq_pan.c``."""
-    mesh = make_mesh(None, 1, device)
+    union = _union_on(device)
     with TIMER.stage("set.uniq_union"):
         cd = CoDir.read(insketch, want_abund=False)
         os.makedirs(outdir, exist_ok=True)
         cd.stat.write(outdir)
         for c in range(cd.stat.comp_num):
-            vals, counts = device_union(cd.ids[c], mesh, return_counts=True)
+            vals, counts = union(cd.ids[c], True)
             vals[counts == 1].tofile(
                 os.path.join(outdir, f"{UNIQ_PAN_PREFIX}.{c}"))
 
@@ -80,6 +118,7 @@ def sketch_operate(insketch: str, pan_dir: str, outdir: str,
                    intersect: bool, *, device) -> None:
     """-s (subtract) / -i (intersect) every genome against a pan sketch,
     keeping each genome's entries in their order."""
+    host = engine(device)
     dev = resolve_device(device)
     with TIMER.stage("set.operate"):
         cd = CoDir.read(insketch, want_abund=False)
@@ -90,10 +129,14 @@ def sketch_operate(insketch: str, pan_dir: str, outdir: str,
         os.makedirs(outdir, exist_ok=True)
         new_ctx = np.zeros(cd.stat.infile_num, dtype=np.uint64)
         for c in range(cd.stat.comp_num):
-            hay = merge.StaticHaystack(np.sort(_read_pan(pan_dir, c)), None,
-                                       dev)
+            pan = np.sort(_read_pan(pan_dir, c))
             ids = merge.u32_tensor(cd.ids[c]).to(dev)
-            member, _ = merge.member(hay.hay, None, ids, hay.index)
+            if host:
+                member = torch.from_numpy(
+                    merge.host_membership(pan, cd.ids[c])[0])
+            else:
+                hay = merge.StaticHaystack(pan, None, dev)
+                member, _ = merge.member(hay.hay, None, ids, hay.index)
             keep = member.bool() if intersect else member == 0
             ids[keep].cpu().numpy().view(np.uint32).tofile(
                 os.path.join(outdir, f"{SKCH_PREFIX}.{c}"))

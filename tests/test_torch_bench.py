@@ -5,7 +5,9 @@
 package's ``sketch_xla`` path gives for the same codes; the bench writes
 the root ``bench.py``'s input files byte for byte; a run on the CPU at a
 tiny size prints one line with every key; a leg that fails, or a card
-that is missing, ends the run nonzero with no number.
+that is missing, ends the run nonzero with no number; the CPU sketch and
+e2e numbers come from ``--device host`` runs, the root bench's meaning,
+and the bench itself takes no ``--device host``.
 """
 
 import importlib.util
@@ -26,12 +28,14 @@ from metakssd_tpu_torch.ops import kernel_bench
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"MKSSD_BENCH_READS": "2000", "MKSSD_BENCH_SPECIES": "64",
         "MKSSD_BENCH_REPS": "1"}
-KEYS = ("cpu_reads_per_s", "reads_per_s_runs", "kernel_mwin_per_s",
+KEYS = ("cpu_reads_per_s", "cpu_reads_per_s_runs", "reads_per_s_runs",
+        "kernel_mwin_per_s",
         "kernel_mwin_per_s_runs", "profile_latency_s",
         "profile_latency_s_runs", "abv_queries_per_s",
         "abv_queries_per_s_runs", "abv_dense_queries_per_s",
         "abv_dense_queries_per_s_runs", "e2e_total_s", "e2e_total_s_runs",
-        "e2e_cold_total_s")
+        "e2e_cold_total_s", "cpu_e2e_total_s", "cpu_e2e_total_s_runs",
+        "cpu_e2e_cold_total_s")
 
 
 def _root_bench():
@@ -157,8 +161,8 @@ def test_cpu_run_prints_every_key(tmp_path):
         got = ex[key]
         assert (min(got) if isinstance(got, list) else got) > 0, key
     assert len(ex["kernel_mwin_per_s_runs"]) == 1
-    assert set(ex["e2e_stages"]) == {"e2e.sketch", "e2e.profile",
-                                     "e2e.poisson"}
+    for key in ("e2e_stages", "cpu_e2e_stages"):
+        assert set(ex[key]) == {"e2e.sketch", "e2e.profile", "e2e.poisson"}
     assert ex["device"] == "cpu"
     assert ex["launches"] == {leg: {} for leg in bench.LEGS}
     assert not any(k.startswith("ref_") for k in ex)
@@ -182,6 +186,43 @@ def test_cpu_e2e_run_prints_its_line(tmp_path):
     assert line["vs_baseline"] == ex["e2e_ref_total_s"] / line["value"]
     assert set(ex["stages"]) == {"e2e.sketch", "e2e.profile", "e2e.poisson"}
     assert ex["device"] == "cpu" and ex["launches"] == {"e2e": {}}
+
+
+def test_cpu_legs_run_the_host_engine(tmp_path, monkeypatch):
+    """The sketch leg's ``cpu_reads_per_s`` repeats are ``run_stage1``
+    calls on ``--device host`` (the fused native sketch each time), after
+    those on ``--device``; every run of the e2e_host leg profiles on
+    host, under the ``cpu_`` keys."""
+    from metakssd_tpu_torch import pipeline, profile_e2e
+    from metakssd_tpu_torch.io import native
+    monkeypatch.setattr(bench, "CACHE", str(tmp_path / "cache"))
+    monkeypatch.setattr(bench, "N_READS", 2000)
+    monkeypatch.setattr(bench, "N_SPECIES", 64)
+    monkeypatch.setattr(bench, "REPS", 2)
+    calls = []
+
+    def record(mod, name):
+        real = getattr(mod, name)
+
+        def f(*a, **kw):
+            calls.append((name, kw.get("device")))
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, name, f)
+    record(pipeline, "run_stage1")
+    record(native, "sketch_fastq")
+    res = bench.LEGS["sketch"]("cpu")
+    assert calls == [("run_stage1", "cpu")] * 2 + [
+        ("run_stage1", "host"), ("sketch_fastq", None)] * 2
+    assert len(res["cpu_reads_per_s_runs"]) == 2
+    assert res["cpu_reads_per_s"] == max(res["cpu_reads_per_s_runs"])
+    assert res["reads_per_s_runs"] != res["cpu_reads_per_s_runs"]
+    calls.clear()
+    bench._profile_fixture("cpu")
+    record(profile_e2e, "profile_fastq")
+    res = bench.LEGS["e2e_host"]("cpu")
+    assert [d for n, d in calls if n == "profile_fastq"] == ["host"] * 3
+    assert sorted(res) == ["cpu_e2e_cold_total_s", "cpu_e2e_stages",
+                           "cpu_e2e_total_s", "cpu_e2e_total_s_runs"]
 
 
 def test_reference_legs_with_a_stub_tool(tmp_path, monkeypatch):
@@ -256,3 +297,20 @@ def test_cuda_without_a_card_prints_no_number(tmp_path):
     assert r.returncode != 0 and r.stdout == ""
     assert "torch.cuda.is_available() is False" in r.stderr
     assert not os.path.exists(tmp_path / "cache")
+
+
+@pytest.mark.parametrize("device", ["host", "tpu", "cuda:x", "cpu:0"])
+def test_device_refuses_all_but_cuda_and_cpu(device, capsys):
+    """``--device`` is cuda, cuda:N or cpu: the host engine's legs run
+    under the ``cpu_*`` keys whatever it is, so ``host`` is refused
+    before any leg, as is a device that is none of these."""
+    with pytest.raises(SystemExit) as e:
+        bench.main(["--device", device])
+    assert e.value.code == 2
+    out, err = capsys.readouterr()
+    assert out == "" and "cuda, cuda:N or cpu" in err
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:3", "cpu"])
+def test_device_takes_cuda_and_cpu(device):
+    assert bench._bench_device(device) == device
