@@ -1,0 +1,12 @@
+"""abv_format_ms: the summed host time per call of the program's
+``abv.format`` spans (``ops/dense_abv``: each query's text: its header,
+``io/native.format_name_float_lines`` or the numpy lines, ``decode`` and
+the write), read from the traced window (``torch.profiler``'s host
+clock). None where the program has no such span."""
+
+
+def read(run):
+    got = run.trace.spans.get("abv.format") if run.trace is not None else None
+    if not got:
+        return None
+    return 1e-3 * sum(b - a for a, b in got) / len(run.calls)

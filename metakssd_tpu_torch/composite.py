@@ -309,7 +309,7 @@ def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
     TIMER.count("composite.refs", nref)
 
     for qn in range(qry.stat.infile_num):
-        _t0 = time.time()   # per-query match+stats+write (summed in report)
+        _t0 = time.perf_counter()  # per-query match+stats+write, summed
         pcq = []
         for c in range(ref.stat.comp_num):
             qids = qry.genome_ids(c, qn)
@@ -388,7 +388,7 @@ def get_species_abundance(refdir: str, qrydir: str, outdir: str = "./",
             os.makedirs(vdir, exist_ok=True)
             base = os.path.basename(qry.stat.names[qn])
             write_abv_file(os.path.join(vdir, base + ".abv"), idxs, pcts)
-        TIMER.stages.append(("composite.profile", time.time() - _t0))
+        TIMER.stages.append(("composite.profile", time.perf_counter() - _t0))
 
 
 # --------------------------------------------------------------------------

@@ -14,6 +14,16 @@ The text output follows ``_abv_search_dense_impl``: samples sharing no
 dimension with a query are not reported, values may differ from the
 sparse path (``metakssd_tpu.composite.abv_search``) in the last float
 ulps, and ties are broken by sample id.
+
+Each call of ``abv_search_dense`` is one ``TIMER`` stage ``abv.search``
+holding the stages of its parts (``utils.StageTimer``, which under an
+active ``torch.profiler`` puts them on the clock of the device's
+kernels): ``abv.db``
+(and ``abv.stage`` on a cache miss), ``abv.queries``, ``abv.batch`` (all
+of ``abv_search_batch``: ``abv.mask``, ``abv.measure``,
+``abv.readback``), ``abv.names``, and per query ``abv.rank`` and
+``abv.format``; counters ``abv.queries`` and ``abv.lines`` (the text's
+data lines).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from metakssd_tpu_torch.formats.abv import (BINVEC_DIRNAME, AbvIndex,
                                             read_abv_file)
 from metakssd_tpu_torch.io import native as native_io
 from metakssd_tpu_torch.state import dense_abv_from_index
+from metakssd_tpu_torch.utils import TIMER
 
 L1_CHUNK = 512                # species per L1 step (``_dense_l1``'s chunk)
 L1_TEMP_BYTES = 1 << 30       # bound on the [B, N, chunk] L1 temporary
@@ -61,7 +72,8 @@ def _dense_l2_overlap(db: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     three masked matmuls: sum x^2[y!=0] + sum y^2[x!=0] - 2<x,y>.  A query
     equal to a DB vector leaves a rounding residue that may be negative,
     whose sqrt is NaN, as in the JAX package (ROADMAP.md section 3)."""
-    ymask = (db != 0).to(torch.float32)
+    with TIMER.stage("abv.mask"):
+        ymask = (db != 0).to(torch.float32)
     qmask = (q != 0).to(torch.float32)
     dot = q @ db.T
     q2y = (q * q) @ ymask.T
@@ -114,20 +126,24 @@ def abv_search_batch(dense: DenseAbv, queries: np.ndarray, mode: int = 0
     (measure [B, N], overlap mask [B, N]) as numpy; samples sharing no
     dimension with a query are masked out by the overlap.  mode: 0 cosine,
     1 L1, 2 L2 (sqrt)."""
-    db = dense.mat
-    q = torch.from_numpy(np.asarray(queries, np.float32)).to(db.device)
-    with _fp32_matmul():
-        ymask = (db != 0).to(torch.float32)
-        qmask = (q != 0).to(torch.float32)
-        overlap = (qmask @ ymask.T) > 0
-        del ymask
-        if mode == 0:
-            measure = _cosine(db, dense.y_l2n, q)
-        elif mode == 1:
-            measure = _dense_l1(db, q)
-        else:
-            measure = torch.sqrt(_dense_l2_overlap(db, q))
-    return measure.cpu().numpy(), overlap.cpu().numpy()
+    with TIMER.stage("abv.batch"):
+        db = dense.mat
+        q = torch.from_numpy(np.asarray(queries, np.float32)).to(db.device)
+        with _fp32_matmul():
+            with TIMER.stage("abv.mask"):
+                ymask = (db != 0).to(torch.float32)
+            qmask = (q != 0).to(torch.float32)
+            overlap = (qmask @ ymask.T) > 0
+            del ymask
+            with TIMER.stage("abv.measure"):
+                if mode == 0:
+                    measure = _cosine(db, dense.y_l2n, q)
+                elif mode == 1:
+                    measure = _dense_l1(db, q)
+                else:
+                    measure = torch.sqrt(_dense_l2_overlap(db, q))
+        with TIMER.stage("abv.readback"):
+            return measure.cpu().numpy(), overlap.cpu().numpy()
 
 
 _DENSE_CACHE: dict = {}
@@ -136,16 +152,20 @@ _DENSE_CACHE: dict = {}
 def _dense_db(refdir: str, device):
     """(AbvIndex, nspecies, DenseAbv) of ``refdir`` on ``device``, cached
     by (refdir, index mtime, device)."""
-    abm = os.path.join(refdir, "abundance_Vec.abm")
-    key = (os.path.abspath(refdir),
-           os.path.getmtime(abm) if os.path.exists(abm) else 0, str(device))
-    got = _DENSE_CACHE.get(key)
-    if got is None:
-        idx = AbvIndex.read(refdir)
-        nspecies = int(idx.abmi.size)
-        got = (idx, nspecies, dense_abv_from_index(idx, nspecies, device))
-        _DENSE_CACHE[key] = got
-    return got
+    with TIMER.stage("abv.db"):
+        abm = os.path.join(refdir, "abundance_Vec.abm")
+        key = (os.path.abspath(refdir),
+               os.path.getmtime(abm) if os.path.exists(abm) else 0,
+               str(device))
+        got = _DENSE_CACHE.get(key)
+        if got is None:
+            with TIMER.stage("abv.stage"):
+                idx = AbvIndex.read(refdir)
+                nspecies = int(idx.abmi.size)
+                got = (idx, nspecies,
+                       dense_abv_from_index(idx, nspecies, device))
+            _DENSE_CACHE[key] = got
+        return got
 
 
 def abv_search_dense(refdir: str, queries: list[str], mode: int = 0,
@@ -154,47 +174,56 @@ def abv_search_dense(refdir: str, queries: list[str], mode: int = 0,
     ``metakssd_tpu.composite.abv_search``, with every query searched in
     one batched call on ``device``."""
     out = out or sys.stdout
-    dev = resolve_device(device)
-    idx, nspecies, dense = _dense_db(refdir, dev)
-    qmat, qnames = [], []
-    for qpath in queries:
-        if not qpath.endswith(".abv"):
-            print(f"argument {qpath} is not a .abv file, skipped")
-            continue
-        qpath2 = (os.path.join(refdir, BINVEC_DIRNAME, qpath)
-                  if "/" not in qpath else qpath)
-        qi, qp = read_abv_file(qpath2)
-        row = np.zeros(nspecies, dtype=np.float32)
-        row[qi] = qp
-        qmat.append(row)
-        qnames.append(qpath)
-    if not qmat:
-        return
-    measure, overlap = abv_search_batch(dense, np.stack(qmat), mode=mode)
-    hdr = {0: "CosineXY", 1: "L1norm", 2: "L2norm"}[mode]
-    names_arr = np.asarray(idx.names, dtype=object)
-    names_blob = names_off = None
-    if native_io.available():
-        enc = [n.encode() for n in idx.names]
-        names_off = np.zeros(len(enc) + 1, dtype=np.int64)
-        np.cumsum([len(b) for b in enc], out=names_off[1:])
-        names_blob = b"".join(enc)
-    for b in range(len(qnames)):
-        ids = np.nonzero(overlap[b])[0]
-        vals = measure[b, ids]
-        order = np.argsort(vals, kind="stable")
-        if mode == 0:
-            order = order[::-1]
-        out.write(f"#Sample\t{hdr}\n")
-        buf = None
-        if names_blob is not None:
-            buf = native_io.format_name_float_lines(
-                names_blob, names_off, ids[order],
-                vals[order].astype(np.float64))
-        if buf is not None:
-            out.write(buf.decode())
-        else:
-            # the same "%f" lines, formatted in bulk
-            sv = np.char.mod("%f\n", vals[order].astype(np.float64))
-            lines = names_arr[ids[order]] + "\t" + sv.astype(object)
-            out.write("".join(lines.tolist()))
+    with TIMER.stage("abv.search"):
+        dev = resolve_device(device)
+        idx, nspecies, dense = _dense_db(refdir, dev)
+        qmat, qnames = [], []
+        with TIMER.stage("abv.queries"):
+            for qpath in queries:
+                if not qpath.endswith(".abv"):
+                    print(f"argument {qpath} is not a .abv file, skipped")
+                    continue
+                qpath2 = (os.path.join(refdir, BINVEC_DIRNAME, qpath)
+                          if "/" not in qpath else qpath)
+                qi, qp = read_abv_file(qpath2)
+                row = np.zeros(nspecies, dtype=np.float32)
+                row[qi] = qp
+                qmat.append(row)
+                qnames.append(qpath)
+        if not qmat:
+            return
+        TIMER.count("abv.queries", len(qnames))
+        measure, overlap = abv_search_batch(dense, np.stack(qmat),
+                                            mode=mode)
+        hdr = {0: "CosineXY", 1: "L1norm", 2: "L2norm"}[mode]
+        with TIMER.stage("abv.names"):
+            names_arr = np.asarray(idx.names, dtype=object)
+            names_blob = names_off = None
+            if native_io.available():
+                enc = [n.encode() for n in idx.names]
+                names_off = np.zeros(len(enc) + 1, dtype=np.int64)
+                np.cumsum([len(b) for b in enc], out=names_off[1:])
+                names_blob = b"".join(enc)
+        for b in range(len(qnames)):
+            with TIMER.stage("abv.rank"):
+                ids = np.nonzero(overlap[b])[0]
+                vals = measure[b, ids]
+                order = np.argsort(vals, kind="stable")
+                if mode == 0:
+                    order = order[::-1]
+            with TIMER.stage("abv.format"):
+                out.write(f"#Sample\t{hdr}\n")
+                buf = None
+                if names_blob is not None:
+                    buf = native_io.format_name_float_lines(
+                        names_blob, names_off, ids[order],
+                        vals[order].astype(np.float64))
+                if buf is not None:
+                    out.write(buf.decode())
+                else:
+                    # the same "%f" lines, formatted in bulk
+                    sv = np.char.mod("%f\n", vals[order].astype(np.float64))
+                    lines = names_arr[ids[order]] + "\t" + \
+                        sv.astype(object)
+                    out.write("".join(lines.tolist()))
+            TIMER.count("abv.lines", ids.size)

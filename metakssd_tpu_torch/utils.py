@@ -1,6 +1,9 @@
 """Observability: stage timers and structured logging (the port's copy
-of ``metakssd_tpu/utils.py``, without its jax profiler and backend
-policy: the port names its device explicitly, ``device.py``).
+of ``metakssd_tpu/utils.py``, without its backend policy: the port names
+its device explicitly, ``device.py``).  In place of the JAX package's
+``jax.profiler`` hook, a stage is also a ``torch.profiler.record_function``
+span whenever a ``torch.profiler`` session is active, so that it lies on
+the profiler's clock beside the device's kernels and copies.
 
 The reference had only printf progress lines and unused ms/µs helpers
 (mytime.c); here the pipeline stages (stage I sketch, stage II invert,
@@ -48,11 +51,21 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.time()
+        """Time the block (``time.perf_counter``) as stage ``name``; under
+        an active ``torch.profiler`` also mark it on the profiler's
+        timeline.  Never synchronises the device: a stage's device time
+        is that of the kernels launched inside its span."""
+        span = None
+        if _profiling():
+            span = sys.modules["torch"].profiler.record_function(name)
+            span.__enter__()
+        t0 = time.perf_counter()
         try:
             yield
         finally:
-            dt = time.time() - t0
+            dt = time.perf_counter() - t0
+            if span is not None:
+                span.__exit__(None, None, None)
             self.stages.append((name, dt))
             if self.enabled and not self.json_mode:
                 print(f"[mkssd] {name}: {dt:.3f}s", file=sys.stderr)
@@ -70,6 +83,14 @@ class StageTimer:
         if self.enabled and self.json_mode:
             print(json.dumps(rep), file=sys.stderr)
         return rep
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` session is active: a cheap check,
+    where entering ``record_function`` costs some fifty times more even
+    with no profiler.  Without torch loaded no session can be."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
 
 
 TIMER = StageTimer()
