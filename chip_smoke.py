@@ -166,9 +166,23 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    (96 DB vectors, 32 perturbed copies) through ``composite -s 0/1/2``:
    sparse text identical between the routes; ``--dense`` on the card (a
    1 GiB float32 DB) with the sparse path's overlap sets, within 2e-3 of
-   its measures (a query's L2 to itself excepted: ROADMAP.md section 3)
+   its measures (a query's L2 to itself exactly 0, as the sparse path's)
    and every DB query its own top cosine hit; ``--dense --device cpu`` on
-   8 queries within 2e-3 of the card's;
+   8 queries within 2e-3 of the card's; in each dense leg
+   ``dense_abv.LAUNCHES`` (zeroed before it) and the ``abv.kernel``
+   counter equal the calls of ``abv_search_batch`` on the card (at least
+   one) and read 0 on the CPU, and ``abv.columns`` equals the queries'
+   nonzeros;
+7b. abv kernel: ``probes/bench_abv.run``: the dense search's gather
+   kernel ``mkssd_abv_gather`` at the benchmark's shape (47,752 x 85,205
+   float32, 16.3 GB), held to its plain twin on the card at query sizes
+   30, 383 and 3,000 (cosine, L1 and L2), then timed at 30, 383, 3,000
+   and 85,205 nonzero species (L2 and L1) beside its sector-gather bound,
+   the twin's time and ``abv_search_batch``'s; the probe's last line
+   gives the torch-op chain it retired (L2 71.1 ms, L1 59.5 ms a call,
+   from the benchmark's traced runs in PERF_LEDGER.jsonl, not measured
+   here) as the yardstick.  The kernels line's launches are those of
+   phase 7's dense legs (``launches_by_leg``), the probe's apart;
 8. probes: the probe path P1-P4, the port's counterparts of the TPU
    probes of ``benchmarks/`` (``metakssd_tpu_torch/probes/``), each at its
    file's shapes (2^24 windows per dispatch) and timing method (16
@@ -195,9 +209,10 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    (each from 0) must show K1 on the card in the sketch, kernel (at least
    16) and e2e legs and no launch in the host e2e leg; the host engine's
    reads/s and e2e seconds are printed beside the card's;
-9. cuda tests: ``pytest -m cuda`` on the five cuda-marked test files.
+9. cuda tests: ``pytest -m cuda`` on the six cuda-marked test files.
 
-The line before the last is the kernels' JSON record, with the launch
+The line before the last is the kernels' JSON record (phase 7b's gather
+among them, at the benchmark's mean query, 383 species), with the launch
 counts of the ``profile``, ``dist --byread``, ``dist --mesh 4`` and
 ``profile --mesh 4`` legs and of each bench run's legs (K1, K2), of the ``dist -r --device cuda``,
 ``dist -r --shard-db 1``, ``set --device cuda``, ``profile --shard-db 1``, ``profile --shard-db 4``,
@@ -1905,11 +1920,45 @@ def make_abv_data(work: str, refdir: str, seed: int):
     return queries, names, [int(i) for i in pick[:ABV_DB_QUERIES]]
 
 
+def _dense_leg(label: str, argv: list, path: str, route: str
+               ) -> tuple[float, int]:
+    """``_run_cli_to`` of a ``--dense`` search, with ``abv_search_batch``
+    wrapped (as the benchmark wraps it) to count its calls and their
+    query nonzeros, and ``dense_abv.LAUNCHES`` zeroed before it: on the
+    card every call must launch the gather once, counted alike by
+    ``LAUNCHES`` and the ``abv.kernel`` counter, and the ``abv.columns``
+    counter must hold every nonzero; on the CPU nothing launches.
+    Returns (seconds, launches)."""
+    import numpy as np
+    from metakssd_tpu_torch.ops import dense_abv
+    from metakssd_tpu_torch.utils import TIMER
+    inner = dense_abv.abv_search_batch
+    nnz = []
+
+    def counted(dense, queries, mode=0):
+        nnz.append(int(np.count_nonzero(queries)))
+        return inner(dense, queries, mode=mode)
+
+    dense_abv.LAUNCHES = 0
+    dense_abv.abv_search_batch = counted
+    try:
+        secs = _run_cli_to(label, argv, path)
+    finally:
+        dense_abv.abv_search_batch = inner
+    got = (dense_abv.LAUNCHES, TIMER.counters.get("abv.kernel", 0),
+           TIMER.counters.get("abv.columns", 0))
+    want = (len(nnz), len(nnz), sum(nnz)) if route == "cuda" else (0, 0, 0)
+    check(bool(nnz) and got == want, f"{label}: (LAUNCHES, abv.kernel, "
+          f"abv.columns) {got}, not {want} for {len(nnz)} calls")
+    return secs, got[0]
+
+
 def phase_abv(work: str, seed: int, refdir: str) -> dict:
     """The abv leg: index, sparse search on both routes (identical text),
     dense search on the card (overlap sets, 2e-3 bound and self hits
-    against the sparse path) and on the CPU for ABV_CPU_QUERIES queries
-    (2e-3 of the card's)."""
+    against the sparse path; the gather launched once a call) and on the
+    CPU for ABV_CPU_QUERIES queries (2e-3 of the card's; no launch).
+    Returns the legs' seconds and the dense card legs' launches."""
     import numpy as np
     import torch
     from metakssd_tpu_torch.ops import dense_abv
@@ -1929,7 +1978,7 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
           f"{time.time() - t:.3f} s", flush=True)
     nq = len(queries)
     cpu_q = queries[:ABV_CPU_QUERIES // 2] + queries[-ABV_CPU_QUERIES // 2:]
-    secs = {}
+    secs, launches = {}, {}
     for mode in (0, 1, 2):
         txt = {}
         for route in ("cuda", "cpu"):
@@ -1944,10 +1993,13 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
         for route, qs in (("cuda", queries), ("cpu", cpu_q)):
             txt[f"dense_{route}"] = os.path.join(
                 work, f"abv_s{mode}_dense_{route}.txt")
-            secs[f"s{mode} dense {route}, {len(qs)} queries"] = _run_cli_to(
-                f"composite -s {mode} --dense --device {route}",
-                ["composite", "-r", refdir, "-s", str(mode), "--dense", *qs,
-                 "--device", route], txt[f"dense_{route}"])
+            label = f"composite -s {mode} --dense --device {route}"
+            secs[f"s{mode} dense {route}, {len(qs)} queries"], n = \
+                _dense_leg(label, ["composite", "-r", refdir, "-s",
+                                   str(mode), "--dense", *qs, "--device",
+                                   route], txt[f"dense_{route}"], route)
+            if route == "cuda":
+                launches[label] = n
         sparse = _abv_blocks(txt["cuda"], index_of)
         dense_b = _abv_blocks(txt["dense_cuda"], index_of)
         check(len(sparse) == len(dense_b) == nq, f"-s {mode}: block count")
@@ -1961,8 +2013,7 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
             sv, dv = sv[os_], dv[od]
             held = np.ones(sv.size, bool)
             if mode == 2:
-                # a query equal to a DB vector: sparse 0, dense the sqrt of
-                # a rounding residue (ROADMAP.md section 3)
+                # a query equal to a DB vector: 0 on both paths
                 held = sv != 0.0
                 selfs += int((~held).sum())
                 residues += dv[~held].tolist()
@@ -1973,6 +2024,8 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
                        f"query {qi}: top cosine hit {names[di[0]]} is not "
                        f"itself {names[db_queries[qi]]}")
         check(worst < DENSE_TOL, f"-s {mode}: dense vs sparse {worst}")
+        check(all(r == 0.0 for r in residues),
+              f"-s {mode}: dense self L2 not 0: {max(residues, default=0)}")
         cpu_b = _abv_blocks(txt["dense_cpu"], index_of)
         cuda_sub = dense_b[:ABV_CPU_QUERIES // 2] + \
             dense_b[-ABV_CPU_QUERIES // 2:]
@@ -1993,9 +2046,8 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
         extra = ""
         if mode == 2:
             r = np.asarray(residues)
-            extra = (f"; {selfs} self distances (sparse 0): dense NaN "
-                     f"{int(np.isnan(r).sum())}, max "
-                     f"{float(np.nanmax(r)) if np.isfinite(r).any() else 0}")
+            extra = (f"; {selfs} self distances, sparse and dense 0 "
+                     f"(dense max {float(r.max()) if r.size else 0})")
         print(f"  -s {mode}: {lines} lines; sparse text identical between "
               f"routes; dense overlap sets equal, max |dense - sparse| "
               f"{worst:.3g}, dense cpu vs cuda {cpu_worst:.3g}"
@@ -2005,14 +2057,16 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
     print("  seconds: " + json.dumps(
         {k: round(v, 4) for k, v in secs.items()}), flush=True)
-    return {"seconds": secs}
+    print(f"  gather launches: {json.dumps(launches)}", flush=True)
+    return {"seconds": secs, "launches_by_leg": launches}
 
 
 CUDA_TESTS = ["tests/test_torch_sketch_cuda.py",
               "tests/test_torch_member_cuda.py",
               "tests/test_torch_setops_cuda.py",
               "tests/test_torch_probes_cuda.py",
-              "tests/test_torch_mesh_cuda.py"]
+              "tests/test_torch_mesh_cuda.py",
+              "tests/test_torch_abv_cuda.py"]
 PROBE_KERNELS = ("probe_floor", "probe_winmath", "probe_gather",
                  "probe_search")
 
@@ -2262,6 +2316,24 @@ def phase_cuda_tests() -> None:
            + proc.stderr[-2000:])
 
 
+def abv_gather_record(res: dict, legs: dict) -> dict:
+    """The kernels line's entry of ``mkssd_abv_gather``: its launches in
+    phase 7's dense card legs (``legs``), then phase 7b's probe: L2 at
+    the benchmark's mean query (383 species), every timed case beside
+    with the probe's own launches."""
+    head = next(r for r in res["lines"]
+                if r["nnz"] == 383 and r["mode"] == "L2")
+    return {"name": "abv_gather", "route": "cuda",
+            "source": "metakssd_tpu_torch/csrc/abv.cu",
+            "replaces": "none (XLA matmuls, metakssd_tpu/ops/dense_abv.py"
+                        ":45-96)",
+            "launches": sum(legs.values()), "launches_by_leg": legs,
+            "max_rel_gap": res["check_gap"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "shapes": res["lines"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of metakssd_tpu_torch on one NVIDIA GPU")
@@ -2276,6 +2348,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from metakssd_tpu_torch.io import native
     from metakssd_tpu_torch.ops import _build
+    from metakssd_tpu_torch.probes import bench_abv
 
     t0 = time.time()
     card = subprocess.run(
@@ -2346,8 +2419,12 @@ def main(argv=None) -> int:
         _phase("host", t0)
 
         t0 = time.time()
-        phase_abv(work, args.seed, setres["markers"])
+        abv = phase_abv(work, args.seed, setres["markers"])
         _phase("abv", t0)
+
+        t0 = time.time()
+        abv_kernel = bench_abv.run(args.seed)
+        _phase("abv kernel", t0)
 
         t0 = time.time()
         probes, probe_launches, probe_index_err = phase_probes()
@@ -2453,6 +2530,7 @@ def main(argv=None) -> int:
              "index_library_graph_ms", "index_bound_ms")}
              for r in mres["shapes"]]},
         *probes,
+        abv_gather_record(abv_kernel, abv["launches_by_leg"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,9 @@ _SIGNATURES = {
     # out, partial, tickets, stream
     "mkssd_probe_search": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I,
                            _P, _P, _I, _P, _P, _P, _P],
+    # db, n_rows, n_cols, offsets, cols, vals, n_queries, y_l2n, mode,
+    # measure, overlap, stream
+    "mkssd_abv_gather": [_P, _LL, _LL, _P, _P, _P, _I, _P, _I, _P, _P, _P],
 }
 
 _lib = None

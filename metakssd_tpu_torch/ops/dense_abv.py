@@ -3,12 +3,22 @@
 
 The abv database becomes a dense [nsamples, nspecies] float32 matrix on
 the named device (``state.dense_abv_from_index``); every query of a call
-is searched at once.  Cosine and the overlap-L2 are masked matmuls, as in
-the JAX package, which computes them outside any Pallas kernel; here they
-are ``torch.matmul`` in full float32 (TF32 off: its 10-bit mantissa on
-percentages up to 100 breaks the 2e-3 bound the dense search is held to).
-L1 is chunked over queries and species so its broadcast temporary stays
-under ``L1_TEMP_BYTES``.
+is searched at once.  ``abv_search_batch`` hands the queries to the
+gather as CSR (each query's sorted nonzero species and their values) and
+reads each DB row only at those columns: on the card the hand-written
+kernel ``mkssd_abv_gather`` (``csrc/abv.cu``), for a DB on the CPU its
+plain twin ``abv_gather_plain``, the same formula in PyTorch.  For a
+query x and a sample y, over the species both hold (the reference tool's
+``abv_search``, command_composite.c:299-319): the overlap (any such
+species), L2 = sqrt(sum (x - y)^2), L1 = 200 + sum (|x - y| - x - y) and
+cosine = sum x * y / (|x| * y_l2n), each sum in float64 and rounded once
+to float32.  The JAX package computes the same measures with masked
+matmuls over the whole matrix, so the port's L2 at a query's own sample
+is 0 where the JAX package's is the root of a rounding residue
+(ROADMAP.md section 3).  ``abv_search_batch_cosine`` (top-k cosine, on no
+CLI route) stays a ``torch.matmul`` in full float32 (TF32 off: its
+10-bit mantissa on percentages up to 100 breaks the 2e-3 bound the dense
+search is held to).
 
 The text output follows ``_abv_search_dense_impl``: samples sharing no
 dimension with a query are not reported, values may differ from the
@@ -20,10 +30,11 @@ holding the stages of its parts (``utils.StageTimer``, which under an
 active ``torch.profiler`` puts them on the clock of the device's
 kernels): ``abv.db``
 (and ``abv.stage`` on a cache miss), ``abv.queries``, ``abv.batch`` (all
-of ``abv_search_batch``: ``abv.mask``, ``abv.measure``,
-``abv.readback``), ``abv.names``, and per query ``abv.rank`` and
-``abv.format``; counters ``abv.queries`` and ``abv.lines`` (the text's
-data lines).
+of ``abv_search_batch``: ``abv.measure``, the upload of the queries'
+CSR and the gather; ``abv.readback``), ``abv.names``, and per query
+``abv.rank`` and ``abv.format``; counters ``abv.queries``, ``abv.lines``
+(the text's data lines), and on the card ``abv.kernel`` (launches of the
+gather) and ``abv.columns`` (query nonzeros it gathered).
 """
 
 from __future__ import annotations
@@ -43,8 +54,7 @@ from metakssd_tpu_torch.io import native as native_io
 from metakssd_tpu_torch.state import dense_abv_from_index
 from metakssd_tpu_torch.utils import TIMER
 
-L1_CHUNK = 512                # species per L1 step (``_dense_l1``'s chunk)
-L1_TEMP_BYTES = 1 << 30       # bound on the [B, N, chunk] L1 temporary
+LAUNCHES = 0                  # launches of mkssd_abv_gather
 
 
 @dataclasses.dataclass
@@ -67,20 +77,6 @@ def _fp32_matmul():
         torch.set_float32_matmul_precision(prev)
 
 
-def _dense_l2_overlap(db: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """The reference's L2 (the sum over *overlapping* dims of (x-y)^2) as
-    three masked matmuls: sum x^2[y!=0] + sum y^2[x!=0] - 2<x,y>.  A query
-    equal to a DB vector leaves a rounding residue that may be negative,
-    whose sqrt is NaN, as in the JAX package (ROADMAP.md section 3)."""
-    with TIMER.stage("abv.mask"):
-        ymask = (db != 0).to(torch.float32)
-    qmask = (q != 0).to(torch.float32)
-    dot = q @ db.T
-    q2y = (q * q) @ ymask.T
-    y2x = qmask @ (db * db).T
-    return q2y + y2x - 2.0 * dot
-
-
 def _cosine(db, y_l2n, q) -> torch.Tensor:
     dot = q @ db.T
     xnorm = torch.sqrt(torch.sum(q * q, dim=1, keepdim=True))
@@ -101,47 +97,131 @@ def abv_search_batch_cosine(dense: DenseAbv, queries: np.ndarray,
     return scores.cpu().numpy(), ids.cpu().numpy()
 
 
-def _dense_l1(db: torch.Tensor, q: torch.Tensor, chunk: int = L1_CHUNK,
-              temp_bytes: int = L1_TEMP_BYTES) -> torch.Tensor:
-    """The full L1 distance [B, N] by species-chunked broadcasting; this
-    equals the reference's overlap L1 plus its complement term because
-    the vectors sum to 100 (command_composite.c:299-319).  Species chunks
-    add up in order, as the JAX scan does; queries go ``qb`` at a time so
-    that the [qb, N, chunk] temporary stays under ``temp_bytes``."""
-    n, s = db.shape
-    qb = max(1, temp_bytes // (4 * max(n, 1) * chunk))
-    acc = torch.zeros((q.shape[0], n), dtype=torch.float32, device=db.device)
-    for lo in range(0, q.shape[0], qb):
-        part = acc[lo:lo + qb]
-        for c0 in range(0, s, chunk):
-            d = db[:, c0:c0 + chunk]
-            x = q[lo:lo + qb, c0:c0 + chunk]
-            part += torch.sum(torch.abs(x[:, None, :] - d[None, :, :]), dim=2)
-    return acc
+def query_csr(queries: np.ndarray) -> tuple[np.ndarray, ...]:
+    """The [B, S] float32 queries as CSR: (offsets int32 [B + 1], sorted
+    column ids int32, values float32) of each row's nonzeros."""
+    flat = np.ascontiguousarray(queries, dtype=np.float32).ravel()
+    # one pass over a flat mask: np.nonzero of a 2-D array is ~10x slower
+    at = np.flatnonzero(flat != 0)
+    rows, cols = np.divmod(at, queries.shape[1])
+    offsets = np.zeros(queries.shape[0] + 1, dtype=np.int32)
+    np.cumsum(np.bincount(rows, minlength=queries.shape[0]),
+              out=offsets[1:])
+    return offsets, cols.astype(np.int32), flat[at]
+
+
+def abv_gather_plain(db: torch.Tensor, y_l2n: torch.Tensor,
+                     offsets: torch.Tensor, cols: torch.Tensor,
+                     vals: torch.Tensor, mode: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mkssd_abv_gather``'s formula in plain PyTorch: (measure float32
+    [B, N], overlap bool [B, N]) of the CSR queries against ``db``, each
+    query's columns gathered (``db[:, cols]``) and summed in float64 where
+    both vectors are nonzero; 0 where a sample shares no species."""
+    b = offsets.numel() - 1
+    measure = torch.zeros((b, db.shape[0]), dtype=torch.float32,
+                          device=db.device)
+    overlap = torch.zeros((b, db.shape[0]), dtype=torch.bool,
+                          device=db.device)
+    for i in range(b):
+        lo, hi = int(offsets[i]), int(offsets[i + 1])
+        x = vals[lo:hi].to(torch.float64)
+        y = db[:, cols[lo:hi].long()].to(torch.float64)
+        both = y != 0
+        if mode == 2:
+            m = torch.sqrt(torch.where(both, (x - y) ** 2, 0.0).sum(1))
+        elif mode == 1:
+            m = 200.0 + torch.where(both, torch.abs(x - y) - x - y,
+                                    0.0).sum(1)
+        else:
+            m = torch.where(both, x * y, 0.0).sum(1) / (
+                torch.sqrt(torch.sum(x * x)) * y_l2n.to(torch.float64))
+        overlap[i] = both.any(1)
+        measure[i] = torch.where(overlap[i], m, 0.0).to(torch.float32)
+    return measure, overlap
+
+
+def _check(db, y_l2n, offsets, cols, vals, mode: int) -> None:
+    if mode not in (0, 1, 2):
+        raise ValueError(f"no abv measure of mode {mode}: 0 cosine, 1 L1, "
+                         "2 L2")
+    if db.dtype != torch.float32 or db.dim() != 2 or \
+            not db.is_contiguous():
+        raise ValueError("the DB must be a contiguous 2-D float32 tensor")
+    for name, t, dtype, n in (("y_l2n", y_l2n, torch.float32, db.shape[0]),
+                              ("offsets", offsets, torch.int32, None),
+                              ("cols", cols, torch.int32, None),
+                              ("vals", vals, torch.float32, cols.numel())):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
+                             "tensor")
+        if t.device != db.device:
+            raise ValueError(f"{name} lies on {t.device}, the DB on "
+                             f"{db.device}")
+        if n is not None and t.numel() != n:
+            raise ValueError(f"{name} holds {t.numel()} entries, not {n}")
+    if offsets.numel() < 1:
+        raise ValueError("offsets must hold B + 1 entries")
+
+
+def abv_gather(db: torch.Tensor, y_l2n: torch.Tensor, offsets: torch.Tensor,
+               cols: torch.Tensor, vals: torch.Tensor, mode: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(measure float32 [B, N], overlap bool [B, N]) of B queries given as
+    CSR (``query_csr``: offsets from 0, each query's column ids sorted and
+    in [0, S), nonzero values), on ``db``'s device: ``mkssd_abv_gather``
+    on a card, ``abv_gather_plain`` on the CPU.  mode: 0 cosine, 1 L1,
+    2 L2."""
+    global LAUNCHES
+    _check(db, y_l2n, offsets, cols, vals, mode)
+    if db.device.type == "cpu":
+        return abv_gather_plain(db, y_l2n, offsets, cols, vals, mode)
+    if db.device.type != "cuda":
+        raise ValueError(f"no abv gather kernel for device {db.device}")
+    from metakssd_tpu_torch.ops import _build
+    from metakssd_tpu_torch.ops.sketch_cuda import _card_of, _raise_on
+    b = offsets.numel() - 1
+    measure = torch.empty((b, db.shape[0]), dtype=torch.float32,
+                          device=db.device)
+    overlap = torch.empty((b, db.shape[0]), dtype=torch.bool,
+                          device=db.device)
+    if b == 0 or db.numel() == 0:
+        return measure.zero_(), overlap.zero_()
+    lib = _build.library()
+    stream = torch.cuda.current_stream(db.device).cuda_stream
+    with _card_of(db):
+        err = lib.mkssd_abv_gather(
+            db.data_ptr(), db.shape[0], db.shape[1], offsets.data_ptr(),
+            cols.data_ptr(), vals.data_ptr(), b, y_l2n.data_ptr(), mode,
+            measure.data_ptr(), overlap.data_ptr(), stream)
+    _raise_on(err, "mkssd_abv_gather")
+    LAUNCHES += 1
+    TIMER.count("abv.kernel", 1)
+    TIMER.count("abv.columns", cols.numel())
+    return measure, overlap
 
 
 def abv_search_batch(dense: DenseAbv, queries: np.ndarray, mode: int = 0
                      ) -> tuple[np.ndarray, np.ndarray]:
     """All-measure batched search with the reference's semantics: returns
     (measure [B, N], overlap mask [B, N]) as numpy; samples sharing no
-    dimension with a query are masked out by the overlap.  mode: 0 cosine,
-    1 L1, 2 L2 (sqrt)."""
+    dimension with a query are masked out by the overlap (their measure
+    reads 0).  mode: 0 cosine, 1 L1, 2 L2 (sqrt)."""
     with TIMER.stage("abv.batch"):
         db = dense.mat
-        q = torch.from_numpy(np.asarray(queries, np.float32)).to(db.device)
-        with _fp32_matmul():
-            with TIMER.stage("abv.mask"):
-                ymask = (db != 0).to(torch.float32)
-            qmask = (q != 0).to(torch.float32)
-            overlap = (qmask @ ymask.T) > 0
-            del ymask
-            with TIMER.stage("abv.measure"):
-                if mode == 0:
-                    measure = _cosine(db, dense.y_l2n, q)
-                elif mode == 1:
-                    measure = _dense_l1(db, q)
-                else:
-                    measure = torch.sqrt(_dense_l2_overlap(db, q))
+        q = np.asarray(queries, np.float32)
+        if q.ndim != 2 or q.shape[1] != db.shape[1]:
+            raise ValueError(f"queries of shape {q.shape} against a DB of "
+                             f"{db.shape[1]} species")
+        offsets, cols, vals = query_csr(q)
+        with TIMER.stage("abv.measure"):
+            # one upload: offsets, column ids and the values' bits
+            packed = torch.from_numpy(np.concatenate(
+                [offsets, cols, vals.view(np.int32)])).to(db.device)
+            b, nnz = q.shape[0], cols.size
+            measure, overlap = abv_gather(
+                db, dense.y_l2n, packed[:b + 1], packed[b + 1:b + 1 + nnz],
+                packed[b + 1 + nnz:].view(torch.float32), mode)
         with TIMER.stage("abv.readback"):
             return measure.cpu().numpy(), overlap.cpu().numpy()
 

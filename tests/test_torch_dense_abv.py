@@ -3,7 +3,9 @@
 ``state.dense_abv_from_index`` must build the arrays of the JAX
 ``DenseAbv.from_index``; the port's dense measures must lie within 2e-3 of
 the JAX dense path's and of the sparse path's (``composite.abv_search``,
-the reference semantics) for cosine, L1 and L2, with equal overlap masks;
+the reference semantics) for cosine, L1 and L2, with equal overlap masks,
+and its gather's plain twin within 1e-6 of the reference formulas in
+float64;
 and ``cli composite -i / -s 0-2 / -d`` must print and write what the JAX
 CLI does, byte for byte, and ``-s --dense`` within 2e-3 of it.
 """
@@ -97,9 +99,9 @@ def _sparse(refdir: str, name: str, mode: int) -> dict:
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_dense_measures_match(abv_db, mode):
     """Port dense vs JAX dense vs sparse: overlap masks equal, measures
-    within 2e-3.  A query's L2 to itself is left out of the value check:
-    both dense paths give the square root of a rounding residue there
-    (test_l2_self_distance_is_a_rounding_residue)."""
+    within 2e-3.  A query's L2 to itself is held to the sparse path's 0
+    alone: the JAX dense path gives the square root of a rounding residue
+    there (test_l2_self_distance_is_a_rounding_residue)."""
     idx = AbvIndex.read(abv_db)
     nspecies = int(idx.abmi.size)
     names = _some_queries(idx)
@@ -115,33 +117,83 @@ def test_dense_measures_match(abv_db, mode):
         assert got_o[b, self_id]
         for si, sname in enumerate(idx.names):
             assert got_o[b, si] == (sname in sparse)
-            if not got_o[b, si] or (mode == 2 and si == self_id):
+            if not got_o[b, si]:
                 continue
-            assert abs(got_m[b, si] - want_m[b, si]) < TOL, (b, si)
+            if not (mode == 2 and si == self_id):
+                assert abs(got_m[b, si] - want_m[b, si]) < TOL, (b, si)
             assert abs(got_m[b, si] - sparse[sname]) < TOL, (b, sname)
 
 
 def test_l2_self_distance_is_a_rounding_residue(abv_db):
-    """ROADMAP.md section 3: for a query equal to a DB vector the
-    overlap-L2 expression q2y + y2x - 2<x,y> cancels to a residue of a
-    few float32 ulps of sum(x^2), in the JAX package and the port alike;
-    its sqrt is NaN when the residue is negative.  The sparse path gives
-    0 there."""
+    """ROADMAP.md section 3: for a query equal to a DB vector the JAX
+    package's overlap-L2 expression q2y + y2x - 2<x,y> cancels to a residue
+    of a few float32 ulps of sum(x^2); its sqrt is NaN when the residue is
+    negative.  The port's gather sums (x - y)^2 directly and gives exactly
+    0 there, as the sparse path does."""
     idx = AbvIndex.read(abv_db)
     nspecies = int(idx.abmi.size)
     q = _queries(abv_db, idx.names, nspecies)
     dense = dense_abv_from_index(idx, nspecies, "cpu")
-    import torch
-    with dense_abv._fp32_matmul():
-        port = np.diag(dense_abv._dense_l2_overlap(
-            dense.mat, torch.from_numpy(q)).numpy())
+    port_m, port_o = dense_abv.abv_search_batch(dense, q, mode=2)
+    assert np.diag(port_o).all() and (np.diag(port_m) == 0.0).all()
     jd = jax_composite.DenseAbv.from_index(idx, nspecies)
     jax_res = np.diag(np.asarray(jax_composite._dense_l2_overlap(jd.mat, q)))
     bound = 64 * np.spacing((q.astype(np.float64) ** 2).sum(1)
                             .astype(np.float32))
-    assert (np.abs(port) <= bound).all() and (np.abs(jax_res) <= bound).all()
+    assert (np.abs(jax_res) <= bound).all()
     for name in idx.names[:3]:
         assert _sparse(abv_db, name, 2)[name] == 0.0
+
+
+def _reference_f64(mat: np.ndarray, q: np.ndarray, mode: int):
+    """The reference tool's measures (command_composite.c:299-319) of each
+    query against each row, in float64 NumPy: (measure, overlap); over the
+    species both hold, L2 sqrt(sum (y - x)^2), L1 sum |y - x| + 200 -
+    sum x - sum y, cosine sum x y / (|x| |y|), |x| and |y| over all of
+    each vector's species."""
+    x = q.astype(np.float64)[:, None, :]
+    y = mat.astype(np.float64)[None, :, :]
+    both = (x != 0) & (y != 0)
+    if mode == 2:
+        m = np.sqrt(np.where(both, (y - x) ** 2, 0.0).sum(2))
+    elif mode == 1:
+        m = (np.where(both, np.abs(y - x), 0.0).sum(2) + 200.0
+             - np.where(both, x, 0.0).sum(2) - np.where(both, y, 0.0).sum(2))
+    else:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            m = np.where(both, x * y, 0.0).sum(2) / (
+                np.sqrt((x * x).sum(2)) * np.sqrt((y * y).sum(2)))
+    return m, both.any(2)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_plain_gather_matches_float64(abv_db, mode):
+    """The CPU route of ``abv_search_batch`` (the gather's plain twin) on a
+    batch holding a query with no nonzero, a query over every species, DB
+    vectors and random queries of other nonzero counts: overlap exact,
+    measure within 1e-6 of float64 NumPy (relative above 1), and 0 where
+    a sample shares no species."""
+    idx = AbvIndex.read(abv_db)
+    nspecies = int(idx.abmi.size)
+    rng = np.random.default_rng(11 + mode)
+    full = rng.random(nspecies).astype(np.float32) + np.float32(0.01)
+    q = [np.zeros(nspecies, np.float32), full / full.sum() * 100]
+    for nd in (1, 3, nspecies // 4):
+        row = np.zeros(nspecies, np.float32)
+        row[rng.choice(nspecies, nd, replace=False)] = rng.random(nd) + 0.5
+        q.append(row)
+    q = np.vstack(q + list(_queries(abv_db, _some_queries(idx), nspecies)))
+    dense = dense_abv_from_index(idx, nspecies, "cpu")
+    got_m, got_o = dense_abv.abv_search_batch(dense, q, mode=mode)
+    want_m, want_o = _reference_f64(dense.mat.numpy(), q, mode)
+    assert got_m.dtype == np.float32 and got_o.dtype == bool
+    np.testing.assert_array_equal(got_o, want_o)
+    assert not got_o[0].any() and got_o[1].sum() == \
+        (dense.mat.numpy() != 0).any(1).sum()
+    gap = np.abs(got_m[got_o] - want_m[got_o]) / \
+        np.maximum(np.abs(want_m[got_o]), 1.0)
+    assert gap.max() < 1e-6
+    assert (got_m[~got_o] == 0.0).all()
 
 
 def test_cosine_topk_matches(abv_db):
@@ -156,21 +208,6 @@ def test_cosine_topk_matches(abv_db):
     np.testing.assert_array_equal(ids[:, 0], ji[:, 0])
     np.testing.assert_allclose(scores, js, atol=1e-5)
     assert [idx.names[i] for i in ids[:, 0]] == list(names)
-
-
-def test_l1_chunks_over_queries(abv_db):
-    """A small temporary bound splits the queries into several chunks and
-    gives the one-chunk result."""
-    import torch
-    idx = AbvIndex.read(abv_db)
-    nspecies = int(idx.abmi.size)
-    dense = dense_abv_from_index(idx, nspecies, "cpu")
-    q = torch.from_numpy(_queries(abv_db, idx.names, nspecies))
-    whole = dense_abv._dense_l1(dense.mat, q)
-    n = dense.mat.shape[0]
-    parts = dense_abv._dense_l1(dense.mat, q, chunk=16,
-                                temp_bytes=4 * n * 16 * 3)
-    np.testing.assert_allclose(parts.numpy(), whole.numpy(), atol=1e-4)
 
 
 @pytest.mark.parametrize("verb", ["-i", "-s0", "-s1", "-s2", "-d"])

@@ -25,12 +25,12 @@ from metakssd_tpu_torch import cli, utils
 from metakssd_tpu_torch.ops import dense_abv
 from metakssd_tpu_torch.utils import TIMER
 
-# each span's parent; abv.mask's second one (L2's own) is in abv.measure
+# each span's parent
 PARENT = {"abv.db": "abv.search", "abv.stage": "abv.db",
           "abv.queries": "abv.search", "abv.batch": "abv.search",
-          "abv.mask": "abv.batch", "abv.measure": "abv.batch",
-          "abv.readback": "abv.batch", "abv.names": "abv.search",
-          "abv.rank": "abv.search", "abv.format": "abv.search"}
+          "abv.measure": "abv.batch", "abv.readback": "abv.batch",
+          "abv.names": "abv.search", "abv.rank": "abv.search",
+          "abv.format": "abv.search"}
 ONCE = ("abv.db", "abv.queries", "abv.batch", "abv.measure",
         "abv.readback", "abv.names")
 
@@ -82,9 +82,9 @@ def _profiled_call(refdir: str, queries: list[str], mode: int):
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_spans_of_a_call_nest_in_one_search(abv_db, mode):
     """Per call: one ``abv.search``, every other span inside its caller's;
-    the DB mask twice in L2 (once in ``abv.measure``), once otherwise;
-    ``abv.rank`` and ``abv.format`` once a query; ``abv.stage`` on the
-    call that misses the cache only."""
+    one ``abv.measure`` (the gather) and no ``abv.mask`` (the search builds
+    no mask of the DB); ``abv.rank`` and ``abv.format`` once a query;
+    ``abv.stage`` on the call that misses the cache only."""
     queries = _queries(abv_db)
     dense_abv._DENSE_CACHE.clear()
     for miss in (True, False):
@@ -94,13 +94,8 @@ def test_spans_of_a_call_nest_in_one_search(abv_db, mode):
         assert names.count("abv.search") == 1
         assert parents[0] == ("abv.search", None)
         for name, parent in parents[1:]:
-            want = PARENT[name]
-            if name == "abv.mask" and parent == "abv.measure":
-                assert mode == 2
-                continue
-            assert parent == want, (name, parent)
-        assert names.count("abv.mask") == (2 if mode == 2 else 1)
-        assert ("abv.mask", "abv.measure") in parents or mode != 2
+            assert parent == PARENT[name], (name, parent)
+        assert "abv.mask" not in names
         for name in ONCE:
             assert names.count(name) == 1, name
         assert names.count("abv.rank") == names.count("abv.format") \
@@ -127,7 +122,7 @@ def test_no_profiler_no_record_function(abv_db, mode, monkeypatch):
         TIMER.reset()
     assert names.count("abv.search") == 1
     assert set(PARENT) - {"abv.stage"} <= set(names)
-    assert names.count("abv.mask") == (2 if mode == 2 else 1)
+    assert names.count("abv.measure") == 1 and "abv.mask" not in names
     assert names.count("abv.format") == len(queries)
 
 
