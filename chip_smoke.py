@@ -163,8 +163,13 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
 7. abv: one abundance vector per taxon of phase 6's markers (16,384
    vectors over 16,384 species dims, 30-600 nonzero dims of skewed
    prevalence, lognormal percentages), ``composite -i``, and 128 queries
-   (96 DB vectors, 32 perturbed copies) through ``composite -s 0/1/2``:
-   sparse text identical between the routes; ``--dense`` on the card (a
+   (96 DB vectors, 32 perturbed copies) through ``composite -s 0/1/2``
+   over the index's postings: the text of ``--device cuda`` (the walk
+   kernel ``mkssd_abv_post_walk``, launched once a call of
+   ``postings_search_batch``, counted by ``abv.post.kernel``) and
+   ``--device cpu`` (its plain twin, no launch; on 8 of the queries)
+   byte-identical to ``--device host`` (``composite.abv_search``);
+   ``--dense`` on the card (a
    1 GiB float32 DB) with the sparse path's overlap sets, within 2e-3 of
    its measures (a query's L2 to itself exactly 0, as the sparse path's)
    and every DB query its own top cosine hit; ``--dense --device cpu`` on
@@ -177,12 +182,22 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    kernel ``mkssd_abv_gather`` at the benchmark's shape (47,752 x 85,205
    float32, 16.3 GB), held to its plain twin on the card at query sizes
    30, 383 and 3,000 (cosine, L1 and L2), then timed at 30, 383, 3,000
-   and 85,205 nonzero species (L2 and L1) beside its sector-gather bound,
-   the twin's time and ``abv_search_batch``'s; the probe's last line
+   and 85,205 nonzero species (L2 and L1) beside its sector-gather bound
+   and ``abv_search_batch``'s time (the twin's times, 2.5-3x the
+   kernel's, are in PERF.md and no longer taken here); the probe's last line
    gives the torch-op chain it retired (L2 71.1 ms, L1 59.5 ms a call,
    from the benchmark's traced runs in PERF_LEDGER.jsonl, not measured
-   here) as the yardstick.  The kernels line's launches are those of
-   phase 7's dense legs (``launches_by_leg``), the probe's apart;
+   here) as the yardstick.  Then ``probes/bench_abv_postings.run``: the
+   postings walk kernel ``mkssd_abv_post_walk`` at the whole public abv
+   DB's shape (382,016 samples x 85,205 species, about 146M postings
+   drawn and staged on the card), held to its plain twin, both on the
+   card on the same CSR, in all three modes at 30, 383 and 3,000 query
+   species (every measure's float32 bits and every first touch; the
+   count that differs and the largest gap printed), then timed at each
+   size and mode beside its byte bound, the twin's time and
+   ``postings_search_batch``'s.  The kernels line's launches are those
+   of phase 7's dense legs (``launches_by_leg``), the probe's apart, and
+   the postings walk's those of phase 7's ``-s`` legs on the card;
 8. probes: the probe path P1-P4, the port's counterparts of the TPU
    probes of ``benchmarks/`` (``metakssd_tpu_torch/probes/``), each at its
    file's shapes (2^24 windows per dispatch) and timing method (16
@@ -209,10 +224,11 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    (each from 0) must show K1 on the card in the sketch, kernel (at least
    16) and e2e legs and no launch in the host e2e leg; the host engine's
    reads/s and e2e seconds are printed beside the card's;
-9. cuda tests: ``pytest -m cuda`` on the six cuda-marked test files.
+9. cuda tests: ``pytest -m cuda`` on the seven cuda-marked test files.
 
 The line before the last is the kernels' JSON record (phase 7b's gather
-among them, at the benchmark's mean query, 383 species), with the launch
+and postings walk among them, each at its benchmark's mean query, 383
+species, L2), with the launch
 counts of the ``profile``, ``dist --byread``, ``dist --mesh 4`` and
 ``profile --mesh 4`` legs and of each bench run's legs (K1, K2), of the ``dist -r --device cuda``,
 ``dist -r --shard-db 1``, ``set --device cuda``, ``profile --shard-db 1``, ``profile --shard-db 4``,
@@ -1953,6 +1969,35 @@ def _dense_leg(label: str, argv: list, path: str, route: str
     return secs, got[0]
 
 
+def _postings_leg(label: str, argv: list, path: str, route: str
+                  ) -> tuple[float, int]:
+    """``_run_cli_to`` of a ``composite -s`` search, with
+    ``abv_postings.postings_search_batch`` wrapped to count its calls: on
+    the card every call must launch the postings walk once (the
+    ``abv.post.kernel`` counter), on the CPU none, and ``--device host``
+    must not reach it.  Returns (seconds, launches)."""
+    from metakssd_tpu_torch.ops import abv_postings
+    from metakssd_tpu_torch.utils import TIMER
+    inner = abv_postings.postings_search_batch
+    calls = []
+
+    def counted(staged, queries, mode=0):
+        calls.append(len(queries))
+        return inner(staged, queries, mode=mode)
+
+    abv_postings.postings_search_batch = counted
+    try:
+        secs = _run_cli_to(label, argv, path)
+    finally:
+        abv_postings.postings_search_batch = inner
+    got = int(TIMER.counters.get("abv.post.kernel", 0))
+    want = len(calls) if route == "cuda" else 0
+    check(bool(calls) is (route != "host") and got == want,
+          f"{label}: {len(calls)} calls of postings_search_batch, "
+          f"abv.post.kernel {got}, not {want}")
+    return secs, got
+
+
 def phase_abv(work: str, seed: int, refdir: str) -> dict:
     """The abv leg: index, sparse search on both routes (identical text),
     dense search on the card (overlap sets, 2e-3 bound and self hits
@@ -1978,18 +2023,30 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
           f"{time.time() - t:.3f} s", flush=True)
     nq = len(queries)
     cpu_q = queries[:ABV_CPU_QUERIES // 2] + queries[-ABV_CPU_QUERIES // 2:]
-    secs, launches = {}, {}
+    secs, launches, post_launches = {}, {}, {}
     for mode in (0, 1, 2):
         txt = {}
-        for route in ("cuda", "cpu"):
+        for route, qs in (("cuda", queries), ("cpu", cpu_q),
+                          ("host", queries)):
             txt[route] = os.path.join(work, f"abv_s{mode}_{route}.txt")
-            secs[f"s{mode} sparse {route}, {nq} queries"] = _run_cli_to(
-                f"composite -s {mode} --device {route}",
-                ["composite", "-r", refdir, "-s", str(mode), *queries,
-                 "--device", route], txt[route])
-        with open(txt["cuda"], "rb") as a, open(txt["cpu"], "rb") as b:
-            check(a.read() == b.read(), f"-s {mode}: sparse text differs "
-                                         "between the routes")
+            label = f"composite -s {mode} --device {route}"
+            secs[f"s{mode} sparse {route}, {len(qs)} queries"], n = \
+                _postings_leg(label, ["composite", "-r", refdir, "-s",
+                                      str(mode), *qs, "--device", route],
+                              txt[route], route)
+            if route == "cuda":
+                post_launches[label] = n
+        got = {}
+        for route in txt:
+            with open(txt[route], "rb") as f:
+                got[route] = f.read()
+        check(got["cuda"] == got["host"], f"-s {mode}: text of --device "
+                                          "cuda differs from --device host")
+        blocks = got["host"].split(b"#Sample\t")[1:]
+        cpu_blocks = blocks[:ABV_CPU_QUERIES // 2] + \
+            blocks[-ABV_CPU_QUERIES // 2:]
+        check(got["cpu"] == b"".join(b"#Sample\t" + b for b in cpu_blocks),
+              f"-s {mode}: text of --device cpu differs from --device host")
         for route, qs in (("cuda", queries), ("cpu", cpu_q)):
             txt[f"dense_{route}"] = os.path.join(
                 work, f"abv_s{mode}_dense_{route}.txt")
@@ -2048,8 +2105,8 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
             r = np.asarray(residues)
             extra = (f"; {selfs} self distances, sparse and dense 0 "
                      f"(dense max {float(r.max()) if r.size else 0})")
-        print(f"  -s {mode}: {lines} lines; sparse text identical between "
-              f"routes; dense overlap sets equal, max |dense - sparse| "
+        print(f"  -s {mode}: {lines} lines; sparse text identical on cuda, "
+              f"cpu and host; dense overlap sets equal, max |dense - sparse| "
               f"{worst:.3g}, dense cpu vs cuda {cpu_worst:.3g}"
               f"{'; every DB query its own top hit' if mode == 0 else ''}"
               f"{extra}", flush=True)
@@ -2058,7 +2115,10 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
     print("  seconds: " + json.dumps(
         {k: round(v, 4) for k, v in secs.items()}), flush=True)
     print(f"  gather launches: {json.dumps(launches)}", flush=True)
-    return {"seconds": secs, "launches_by_leg": launches}
+    print(f"  postings walk launches: {json.dumps(post_launches)}",
+          flush=True)
+    return {"seconds": secs, "launches_by_leg": launches,
+            "post_launches_by_leg": post_launches}
 
 
 CUDA_TESTS = ["tests/test_torch_sketch_cuda.py",
@@ -2066,7 +2126,8 @@ CUDA_TESTS = ["tests/test_torch_sketch_cuda.py",
               "tests/test_torch_setops_cuda.py",
               "tests/test_torch_probes_cuda.py",
               "tests/test_torch_mesh_cuda.py",
-              "tests/test_torch_abv_cuda.py"]
+              "tests/test_torch_abv_cuda.py",
+              "tests/test_torch_abv_postings_cuda.py"]
 PROBE_KERNELS = ("probe_floor", "probe_winmath", "probe_gather",
                  "probe_search")
 
@@ -2334,6 +2395,27 @@ def abv_gather_record(res: dict, legs: dict) -> dict:
             "shapes": res["lines"]}
 
 
+def abv_post_record(res: dict, legs: dict) -> dict:
+    """The kernels line's entry of ``mkssd_abv_post_walk``: its launches
+    in phase 7's ``-s`` card legs (``legs``), then phase 7b's postings
+    probe: L2 at the mean query (383 species), the check's largest gap
+    to the twin and every timed case beside with the probe's own
+    launches."""
+    head = next(r for r in res["lines"]
+                if r["nnz"] == 383 and r["mode"] == "L2")
+    return {"name": "abv_post_walk", "route": "cuda",
+            "source": "metakssd_tpu_torch/csrc/abv.cu",
+            "replaces": "none (the host walk of metakssd_tpu/composite.py "
+                        "abv_search)",
+            "launches": sum(legs.values()), "launches_by_leg": legs,
+            "max_abs_err": res["max_abs_err"],
+            "measures_differ": res["measures_differ"],
+            "touches_differ": res["touches_differ"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "postings": res["postings"], "shapes": res["lines"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of metakssd_tpu_torch on one NVIDIA GPU")
@@ -2348,7 +2430,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from metakssd_tpu_torch.io import native
     from metakssd_tpu_torch.ops import _build
-    from metakssd_tpu_torch.probes import bench_abv
+    from metakssd_tpu_torch.probes import bench_abv, bench_abv_postings
 
     t0 = time.time()
     card = subprocess.run(
@@ -2424,6 +2506,7 @@ def main(argv=None) -> int:
 
         t0 = time.time()
         abv_kernel = bench_abv.run(args.seed)
+        abv_post = bench_abv_postings.run(args.seed)
         _phase("abv kernel", t0)
 
         t0 = time.time()
@@ -2531,6 +2614,7 @@ def main(argv=None) -> int:
              for r in mres["shapes"]]},
         *probes,
         abv_gather_record(abv_kernel, abv["launches_by_leg"]),
+        abv_post_record(abv_post, abv["post_launches_by_leg"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

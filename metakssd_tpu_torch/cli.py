@@ -196,11 +196,13 @@ def _cmd_set(args) -> int:
 
 def _cmd_composite(args) -> int:
     """``metakssd_tpu.cli._cmd_composite`` (cli.py:168-192): profiling
-    and ``--dense`` search on ``--device``; the abv index, the sparse
-    search and ``-d`` are host work."""
+    and the abv search (``-s``, over the index's postings, or ``--dense``)
+    on ``--device``, the search's ``host`` route the JAX package's host
+    walk; the abv index and ``-d`` are host work."""
     from metakssd_tpu_torch import composite
+    from metakssd_tpu_torch.device import engine
     from metakssd_tpu_torch.io import native as native_io
-    from metakssd_tpu_torch.ops import dense_abv
+    from metakssd_tpu_torch.ops import abv_postings, dense_abv
     native_io.set_threads(args.threads)
     if args.ref and args.query:
         kw = {} if args.min_km_s is None else {"min_km_s": args.min_km_s}
@@ -213,9 +215,13 @@ def _cmd_composite(args) -> int:
         if args.dense:
             dense_abv.abv_search_dense(args.ref, args.rest or [],
                                        mode=args.search, device=args.device)
-        else:
+        elif engine(args.device):
             composite.abv_search(args.ref, args.rest or [],
                                  mode=args.search)
+        else:
+            abv_postings.abv_search_postings(
+                args.ref, args.rest or [], mode=args.search,
+                device=args.device)
     elif args.readabv:
         for f in args.rest or []:
             composite.read_abv(f)

@@ -443,12 +443,7 @@ def abv_search(refdir: str, queries: list[str], mode: int = 0,
     nsamples = len(idx.names)
     starts = np.concatenate([[0], idx.abmi]).astype(np.int64)
     names_arr = np.asarray(idx.names, dtype=object)
-    names_blob = names_off = None
-    if native_io.available():
-        enc = [n.encode() for n in idx.names]
-        names_off = np.zeros(len(enc) + 1, dtype=np.int64)
-        np.cumsum([len(b) for b in enc], out=names_off[1:])
-        names_blob = b"".join(enc)
+    names_blob, names_off = native_io.names_blob(idx.names)
 
     for qpath in queries:
         if not qpath.endswith(".abv"):
@@ -522,17 +517,8 @@ def abv_search(refdir: str, queries: list[str], mode: int = 0,
         # bulk C-level formatting; per-line Python f-strings are the hot
         # loop when a query touches most samples (the reference prints
         # the same lines with printf, command_composite.c:322-346)
-        buf = None
-        if names_blob is not None:
-            buf = native_io.format_name_float_lines(
-                names_blob, names_off, order,
-                np.asarray(vals, dtype=np.float64))
-        if buf is not None:
-            out.write(buf.decode())
-        else:
-            sv = np.char.mod("%f\n", np.asarray(vals, dtype=np.float64))
-            lines = names_arr[order] + "\t" + sv.astype(object)
-            out.write("".join(lines.tolist()))
+        native_io.write_name_float_lines(out, names_arr, names_blob,
+                                         names_off, order, vals)
 
 
 def read_abv(path: str, out=None) -> None:

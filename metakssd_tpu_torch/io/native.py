@@ -449,6 +449,37 @@ def format_name_float_lines(names_blob: bytes, name_off: np.ndarray,
     return out.raw[:n]
 
 
+def names_blob(names: list[str]) -> tuple[bytes | None, np.ndarray | None]:
+    """(blob, offsets int64 [N + 1]) of ``names`` as
+    ``format_name_float_lines`` reads them, or (None, None) where the
+    library is unavailable.  Built once per index, not per query."""
+    if not available():
+        return None, None
+    enc = [n.encode() for n in names]
+    off = np.zeros(len(enc) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in enc], out=off[1:])
+    return b"".join(enc), off
+
+
+def write_name_float_lines(out, names, blob: bytes | None,
+                           name_off: np.ndarray | None, order: np.ndarray,
+                           vals: np.ndarray) -> None:
+    """Write the lines ``name\t%f\n`` of samples ``order`` with ``vals``
+    to the text stream ``out``: ``format_name_float_lines`` over ``blob``
+    (``names_blob``) where it was built, else numpy's ``%f`` over
+    ``names`` (a list or an object array), byte for byte the same."""
+    vals = np.asarray(vals, dtype=np.float64)
+    buf = None
+    if blob is not None:
+        buf = format_name_float_lines(blob, name_off, order, vals)
+    if buf is not None:
+        out.write(buf.decode())
+        return
+    sv = np.char.mod("%f\n", vals)
+    names = np.asarray(names, dtype=object)
+    out.write("".join((names[order] + "\t" + sv.astype(object)).tolist()))
+
+
 def postings_count(rows: np.ndarray, starts: np.ndarray,
                    gids: np.ndarray, acc: np.ndarray) -> bool:
     """acc[gids[p]] += 1 over all postings of all (repeatable) rows —

@@ -62,6 +62,10 @@ _SIGNATURES = {
     # db, n_rows, n_cols, offsets, cols, vals, n_queries, y_l2n, mode,
     # measure, overlap, stream
     "mkssd_abv_gather": [_P, _LL, _LL, _P, _P, _P, _I, _P, _I, _P, _P, _P],
+    # starts, ids, pct, n_samples, q_off, q_sp, q_val, q_pos, n_queries,
+    # mode, measure, touch, stream
+    "mkssd_abv_post_walk": [_P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P,
+                            _P],
 }
 
 _lib = None

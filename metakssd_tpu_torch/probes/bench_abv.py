@@ -20,9 +20,9 @@ JSON line a (mode, nnz) for L2 and L1 (TIMED_MODES, the benchmark's
 cells): the kernel's ms (CUDA events over REPS launches after
 two warm-ups, each launch through ``dense_abv.abv_gather`` on a CSR
 already on the card), its bound (the 32-byte sectors that the query's
-columns touch in every row, plus the outputs, over 3.35 TB/s), the plain
-twin's ms (CUDA events over 3 calls; not measured at every species,
-whose float64 temporaries exceed the card), ``abv_search_batch``'s ms a
+columns touch in every row, plus the outputs, over 3.35 TB/s),
+``plain_ms`` None (the twin's times at these shapes are recorded in
+PERF.md, section 6, row A1, and no longer taken), ``abv_search_batch``'s ms a
 call on the host clock (CSR build and upload, launch, readback) and the
 launches counted.  The last line names the card and the check's widest
 gap, and beside them, marked as not measured here, the yardstick: the
@@ -168,14 +168,6 @@ def time_cases(dense, seed: int) -> list[dict]:
             before = dense_abv.LAUNCHES
             ms = _events_ms(kernel, REPS)
             launches = dense_abv.LAUNCHES - before
-            plain_ms = None
-            if nnz < SPECIES:
-                def plain(i):
-                    dense_abv.abv_gather_plain(dense.mat, dense.y_l2n,
-                                               *csrs[i % len(csrs)], mode)
-                plain(0)
-                torch.cuda.synchronize()
-                plain_ms = _events_ms(plain, 3)
             path = []
             for q in qs[:5]:
                 t = time.perf_counter()
@@ -184,7 +176,7 @@ def time_cases(dense, seed: int) -> list[dict]:
             rec = {"kernel": "mkssd_abv_gather", "mode": MODE_NAMES[mode],
                    "rows": ROWS, "species": SPECIES, "nnz": nnz, "ms": ms,
                    "bound_ms": 1e3 * nbytes / PEAK_BYTES,
-                   "bound_bytes": nbytes, "plain_ms": plain_ms,
+                   "bound_bytes": nbytes, "plain_ms": None,
                    "path_ms": sorted(path)[len(path) // 2],
                    "launches": launches}
             rec["ms_over_bound"] = ms / rec["bound_ms"]
