@@ -166,7 +166,10 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    (96 DB vectors, 32 perturbed copies) through ``composite -s 0/1/2``
    over the index's postings: the text of ``--device cuda`` (the walk
    kernel ``mkssd_abv_post_walk``, launched once a call of
-   ``postings_search_batch``, counted by ``abv.post.kernel``) and
+   ``postings_search_batch``, counted by ``abv.post.kernel``; every
+   line formatted on the card, ``abv.post.format.card`` equal to
+   ``abv.post.lines``, ``abv.post.format.host`` 0, one call of the text
+   kernel ``mkssd_abv_format_lines`` a query with lines) and
    ``--device cpu`` (its plain twin, no launch; on 8 of the queries)
    byte-identical to ``--device host`` (``composite.abv_search``);
    ``--dense`` on the card (a
@@ -195,9 +198,14 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    species (every measure's float32 bits and every first touch; the
    count that differs and the largest gap printed), then timed at each
    size and mode beside its byte bound, the twin's time and
-   ``postings_search_batch``'s.  The kernels line's launches are those
+   ``postings_search_batch``'s; last the text kernel
+   ``mkssd_abv_format_lines`` at the postings cell's shape (382,016
+   names, 378,000 lines), its text equal to the host writer's, timed
+   beside its byte bound, the card route's host-clock time, the host
+   writer's and the plain twin's.  The kernels line's launches are those
    of phase 7's dense legs (``launches_by_leg``), the probe's apart, and
-   the postings walk's those of phase 7's ``-s`` legs on the card;
+   the postings walk's and the text kernel's those of phase 7's ``-s``
+   legs on the card;
 8. probes: the probe path P1-P4, the port's counterparts of the TPU
    probes of ``benchmarks/`` (``metakssd_tpu_torch/probes/``), each at its
    file's shapes (2^24 windows per dispatch) and timing method (16
@@ -228,7 +236,7 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
 
 The line before the last is the kernels' JSON record (phase 7b's gather
 and postings walk among them, each at its benchmark's mean query, 383
-species, L2), with the launch
+species, L2, and the text kernel at the postings cell's), with the launch
 counts of the ``profile``, ``dist --byread``, ``dist --mesh 4`` and
 ``profile --mesh 4`` legs and of each bench run's legs (K1, K2), of the ``dist -r --device cuda``,
 ``dist -r --shard-db 1``, ``set --device cuda``, ``profile --shard-db 1``, ``profile --shard-db 4``,
@@ -1970,13 +1978,17 @@ def _dense_leg(label: str, argv: list, path: str, route: str
 
 
 def _postings_leg(label: str, argv: list, path: str, route: str
-                  ) -> tuple[float, int]:
+                  ) -> tuple[float, int, int]:
     """``_run_cli_to`` of a ``composite -s`` search, with
     ``abv_postings.postings_search_batch`` wrapped to count its calls: on
     the card every call must launch the postings walk once (the
     ``abv.post.kernel`` counter), on the CPU none, and ``--device host``
-    must not reach it.  Returns (seconds, launches)."""
-    from metakssd_tpu_torch.ops import abv_postings
+    must not reach it.  On the card every line of the text must be
+    formatted there (``abv.post.format.card`` equal to
+    ``abv.post.lines``, none by the host writer), with one call of the
+    text kernel a query that has lines (``abv_text.LAUNCHES``); off the
+    card none.  Returns (seconds, walk launches, text kernel calls)."""
+    from metakssd_tpu_torch.ops import abv_postings, abv_text
     from metakssd_tpu_torch.utils import TIMER
     inner = abv_postings.postings_search_batch
     calls = []
@@ -1986,6 +1998,7 @@ def _postings_leg(label: str, argv: list, path: str, route: str
         return inner(staged, queries, mode=mode)
 
     abv_postings.postings_search_batch = counted
+    before = abv_text.LAUNCHES
     try:
         secs = _run_cli_to(label, argv, path)
     finally:
@@ -1995,7 +2008,19 @@ def _postings_leg(label: str, argv: list, path: str, route: str
     check(bool(calls) is (route != "host") and got == want,
           f"{label}: {len(calls)} calls of postings_search_batch, "
           f"abv.post.kernel {got}, not {want}")
-    return secs, got
+    lines = int(TIMER.counters.get("abv.post.lines", 0))
+    card = int(TIMER.counters.get("abv.post.format.card", 0))
+    host = int(TIMER.counters.get("abv.post.format.host", 0))
+    with open(path) as f:
+        queries = sum(1 for b in f.read().split("#Sample\t")[1:]
+                      if b.count("\n") > 1)
+    formats = abv_text.LAUNCHES - before
+    want = (lines, 0, queries) if route == "cuda" else (0, 0, 0)
+    check((card, host, formats) == want,
+          f"{label}: (abv.post.format.card, abv.post.format.host, text "
+          f"kernel calls) {(card, host, formats)}, not {want} for "
+          f"{lines} lines")
+    return secs, got, formats
 
 
 def phase_abv(work: str, seed: int, refdir: str) -> dict:
@@ -2023,19 +2048,20 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
           f"{time.time() - t:.3f} s", flush=True)
     nq = len(queries)
     cpu_q = queries[:ABV_CPU_QUERIES // 2] + queries[-ABV_CPU_QUERIES // 2:]
-    secs, launches, post_launches = {}, {}, {}
+    secs, launches, post_launches, format_launches = {}, {}, {}, {}
     for mode in (0, 1, 2):
         txt = {}
         for route, qs in (("cuda", queries), ("cpu", cpu_q),
                           ("host", queries)):
             txt[route] = os.path.join(work, f"abv_s{mode}_{route}.txt")
             label = f"composite -s {mode} --device {route}"
-            secs[f"s{mode} sparse {route}, {len(qs)} queries"], n = \
+            secs[f"s{mode} sparse {route}, {len(qs)} queries"], n, nf = \
                 _postings_leg(label, ["composite", "-r", refdir, "-s",
                                       str(mode), *qs, "--device", route],
                               txt[route], route)
             if route == "cuda":
                 post_launches[label] = n
+                format_launches[label] = nf
         got = {}
         for route in txt:
             with open(txt[route], "rb") as f:
@@ -2117,8 +2143,10 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
     print(f"  gather launches: {json.dumps(launches)}", flush=True)
     print(f"  postings walk launches: {json.dumps(post_launches)}",
           flush=True)
+    print(f"  text kernel calls: {json.dumps(format_launches)}", flush=True)
     return {"seconds": secs, "launches_by_leg": launches,
-            "post_launches_by_leg": post_launches}
+            "post_launches_by_leg": post_launches,
+            "format_launches_by_leg": format_launches}
 
 
 CUDA_TESTS = ["tests/test_torch_sketch_cuda.py",
@@ -2416,6 +2444,22 @@ def abv_post_record(res: dict, legs: dict) -> dict:
             "postings": res["postings"], "shapes": res["lines"]}
 
 
+def abv_format_record(res: dict, legs: dict) -> dict:
+    """The kernels line's entry of ``mkssd_abv_format_lines``: its calls
+    in phase 7's ``-s`` card legs (``legs``), then phase 7b's format case
+    at the postings cell's shape (the probe's own calls beside)."""
+    return {"name": "abv_format_lines", "route": "cuda",
+            "source": "metakssd_tpu_torch/csrc/abv.cu",
+            "replaces": "none (the host writer, native/fastseq.cpp:1286 "
+                        "format_name_float_lines)",
+            "launches": sum(legs.values()), "launches_by_leg": legs,
+            "text_equal": res["text_equal"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "host_writer_ms": res["host_writer_ms"],
+            "path_ms": res["path_ms"], "shapes": [res]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of metakssd_tpu_torch on one NVIDIA GPU")
@@ -2615,6 +2659,8 @@ def main(argv=None) -> int:
         *probes,
         abv_gather_record(abv_kernel, abv["launches_by_leg"]),
         abv_post_record(abv_post, abv["post_launches_by_leg"]),
+        abv_format_record(abv_post["format"],
+                          abv["format_launches_by_leg"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

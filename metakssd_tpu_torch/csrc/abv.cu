@@ -487,3 +487,254 @@ int mkssd_abv_post_walk(const void* starts, const void* ids, const void* pct,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// mkssd_abv_format_lines: the ranked text of composite -s <mode>, one line
+// "name\t%f\n" a (sample, value), formatted on the card from the names
+// staged there (ops/abv_text.py).
+//
+// It replaces no Pallas kernel: the JAX package and the port format the
+// text on the host (native/fastseq.cpp:1286 format_name_float_lines, one
+// thread, about 130 ns a line).  Over the whole public abv DB a query
+// ranks about 378k samples, so that loop and its Python wrapping took 73
+// ms of a 98 ms call while the card sat idle.  The value is printed as
+// glibc's "%f" prints it, by fastseq.cpp's fast_f6: for v = m * 2^e,
+// d = round_half_even(m * 5^6 * 2^(e + 6)) exactly in unsigned __int128,
+// a '-' whenever the sign bit is set (-0.0 and negatives that round to
+// -0.000000 too), d / 10^6, '.', and six digits of d % 10^6.  A line
+// that this cannot print exactly (a value not finite, or d above 9e18,
+// |v| above 9e12) or that names a sample outside the names is counted in
+// head[1], not printed: the caller then formats the whole text on the
+// host.
+//
+// What bounds it: the bytes it moves, about 23 MB a query at the cell's
+// shape (12 B of input a line, the names' offsets, the names' bytes and
+// about 26 B of text a line), 0.007 ms at 3.35 TB/s.  Design: one thread
+// a line, two launches on one stream.  The first gives each block of
+// kFmtThreads lines its text's length and counts the flagged lines.  The
+// second adds up the lengths of the blocks before its own (read from L2
+// by every block, so no third pass), scans its threads' lengths and
+// writes each line at its offset.  A block's text, about 7 KB at the
+// cell's names, is laid out in shared memory and written out by
+// consecutive threads to consecutive bytes; a block whose text exceeds
+// kFmtStage (long names) writes its lines to device memory directly.  The
+// last block writes the total length to head[0].
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kFmtThreads = 256;                   // lines a block
+constexpr int kFmtStage = 12 * 1024;               // bytes of shared text
+
+// Line i of the text: where its name lies in the blob, and its value as
+// d = round_half_even(|v| * 10^6) with its sign; value_len is the length
+// of the value's text (sign, integer digits, '.', six digits), 0 where
+// the line is flagged (fastseq.cpp fast_f6's fallbacks, or a sample
+// outside the names).
+struct Line {
+  long long name;
+  int name_len;
+  int value_len;
+  unsigned long long d;
+  bool neg;
+};
+
+__device__ __forceinline__ Line line_of(const long long* __restrict__ off,
+                                        long long n_names,
+                                        const int32_t* __restrict__ ids,
+                                        const double* __restrict__ vals,
+                                        long long i) {
+  Line ln{0, 0, 0, 0, false};
+  const long long s = ids[i];
+  if (s < 0 || s >= n_names) return ln;
+  ln.name = off[s];
+  ln.name_len = static_cast<int>(off[s + 1] - ln.name);
+  const unsigned long long bits =
+      static_cast<unsigned long long>(__double_as_longlong(vals[i]));
+  const int biased = static_cast<int>((bits >> 52) & 0x7FF);
+  const unsigned long long mant = bits & ((1ULL << 52) - 1);
+  if (biased == 0x7FF) return ln;                  // inf, nan
+  const unsigned long long m = biased == 0 ? mant : mant | (1ULL << 52);
+  const int sh = (biased == 0 ? -1074 : biased - 1075) + 6;
+  const unsigned __int128 p = static_cast<unsigned __int128>(m) * 15625u;
+  unsigned __int128 dd;
+  if (sh >= 0) {
+    if (sh > 50) return ln;                        // huge magnitude
+    dd = p << sh;
+  } else if (-sh > 120) {
+    dd = 0;                                        // rounds to 0.000000
+  } else {
+    const int r = -sh;
+    const unsigned __int128 q = p >> r;
+    const unsigned __int128 frac = p - (q << r);
+    const unsigned __int128 half = static_cast<unsigned __int128>(1)
+                                   << (r - 1);
+    dd = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
+  }
+  if (dd > static_cast<unsigned __int128>(9000000000000000000ULL)) return ln;
+  ln.d = static_cast<unsigned long long>(dd);
+  ln.neg = (bits >> 63) != 0;
+  int digits = 1;
+  for (unsigned long long t = 10000000ULL; t <= ln.d && digits < 13;
+       t *= 10)
+    ++digits;
+  ln.value_len = (ln.neg ? 1 : 0) + digits + 7;
+  return ln;
+}
+
+__device__ __forceinline__ int length_of(const Line& ln) {
+  return ln.value_len ? ln.name_len + ln.value_len + 2 : 0;
+}
+
+__device__ __forceinline__ void write_line(char* p, const Line& ln,
+                                           const char* __restrict__ blob) {
+  for (int k = 0; k < ln.name_len; ++k) p[k] = blob[ln.name + k];
+  p += ln.name_len;
+  *p++ = '\t';
+  char* q = p + ln.value_len;
+  *q = '\n';
+  const unsigned long long ip = ln.d / 1000000ULL;
+  unsigned fp = static_cast<unsigned>(ln.d - ip * 1000000ULL);
+  for (int k = 0; k < 6; ++k) {
+    *--q = static_cast<char>('0' + fp % 10);
+    fp /= 10;
+  }
+  *--q = '.';
+  if (ip <= 0xFFFFFFFFULL) {
+    unsigned x = static_cast<unsigned>(ip);
+    do {
+      *--q = static_cast<char>('0' + x % 10);
+      x /= 10;
+    } while (x);
+  } else {
+    unsigned long long x = ip;
+    do {
+      *--q = static_cast<char>('0' + x % 10);
+      x /= 10;
+    } while (x);
+  }
+  if (ln.neg) *--q = '-';
+}
+
+// Exclusive prefix sum of one value a thread over the block; *total gets
+// the block's sum.
+__device__ __forceinline__ long long block_scan(long long v,
+                                                long long* total) {
+  __shared__ long long s_warp[kFmtThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  long long inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long t = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += t;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  long long before = 0;
+  long long all = 0;
+#pragma unroll
+  for (int w = 0; w < kFmtThreads / 32; ++w) {
+    before += w < warp ? s_warp[w] : 0;
+    all += s_warp[w];
+  }
+  __syncthreads();  // s_warp is free for the next scan
+  *total = all;
+  return before + inc - v;
+}
+
+__global__ void __launch_bounds__(kFmtThreads)
+    abv_format_sizes_kernel(const long long* __restrict__ off,
+                            long long n_names,
+                            const int32_t* __restrict__ ids,
+                            const double* __restrict__ vals, long long n,
+                            long long* __restrict__ head,
+                            long long* __restrict__ block_len) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kFmtThreads + threadIdx.x;
+  const int len =
+      i < n ? length_of(line_of(off, n_names, ids, vals, i)) : -1;
+  long long block_total;
+  block_scan(len > 0 ? len : 0, &block_total);
+  long long flagged;
+  block_scan(len == 0, &flagged);
+  if (threadIdx.x == 0) {
+    block_len[blockIdx.x] = block_total;
+    if (flagged)
+      atomicAdd(reinterpret_cast<unsigned long long*>(head + 1),
+                static_cast<unsigned long long>(flagged));
+  }
+}
+
+__global__ void __launch_bounds__(kFmtThreads)
+    abv_format_write_kernel(const char* __restrict__ blob,
+                            const long long* __restrict__ off,
+                            long long n_names,
+                            const int32_t* __restrict__ ids,
+                            const double* __restrict__ vals, long long n,
+                            long long* __restrict__ head,
+                            const long long* __restrict__ block_len,
+                            char* __restrict__ out, long long out_cap) {
+  __shared__ char s_text[kFmtStage];
+  long long part = 0;
+  for (unsigned j = threadIdx.x; j < blockIdx.x; j += kFmtThreads)
+    part += block_len[j];
+  long long base;
+  block_scan(part, &base);
+  const long long total = block_len[blockIdx.x];
+  if (threadIdx.x == 0 && blockIdx.x == gridDim.x - 1)
+    head[0] = base + total;
+  if (base + total > out_cap) return;   // the caller sees head[0] > cap
+
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kFmtThreads + threadIdx.x;
+  const Line ln = i < n ? line_of(off, n_names, ids, vals, i)
+                        : Line{0, 0, 0, 0, false};
+  long long ignored;
+  const long long at = block_scan(length_of(ln), &ignored);
+  const bool staged = total <= kFmtStage;
+  if (ln.value_len) write_line((staged ? s_text : out + base) + at, ln, blob);
+  if (!staged) return;
+  __syncthreads();
+  for (int j = threadIdx.x; j < total; j += kFmtThreads)
+    out[base + j] = s_text[j];
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 or the cudaError_t of a launch.  blob (uint8) holds the
+// names end to end, name s at [off[s], off[s + 1]) (off int64,
+// n_names + 1); the lines: ids (int32, n) and vals (float64, n).  scratch
+// (int64, 2 + ceil(n / 256)): head[0] gets the text's length, head[1]
+// the lines not printed (value not finite or |v| above 9e12, or a sample
+// outside the names), the rest the blocks' lengths.  out (uint8,
+// out_cap) gets the text of the printed lines; where head[1] is not 0 or
+// head[0] exceeds out_cap its content is undefined.
+int mkssd_abv_format_lines(const void* blob, const void* off,
+                           long long n_names, const void* ids,
+                           const void* vals, long long n, void* scratch,
+                           void* out, long long out_cap, void* stream) {
+  if (n < 0 || n_names < 0 || out_cap < 0) return cudaErrorInvalidValue;
+  const long long blocks = (n + kFmtThreads - 1) / kFmtThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  long long* head = static_cast<long long*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(head, 0, 2 * sizeof(long long), s);
+  if (err != cudaSuccess || blocks == 0) return err;
+  const long long* o = static_cast<const long long*>(off);
+  const int32_t* id = static_cast<const int32_t*>(ids);
+  const double* v = static_cast<const double*>(vals);
+  abv_format_sizes_kernel<<<static_cast<unsigned>(blocks), kFmtThreads, 0,
+                            s>>>(o, n_names, id, v, n, head, head + 2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  abv_format_write_kernel<<<static_cast<unsigned>(blocks), kFmtThreads, 0,
+                            s>>>(static_cast<const char*>(blob), o, n_names,
+                                 id, v, n, head, head + 2,
+                                 static_cast<char*>(out), out_cap);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

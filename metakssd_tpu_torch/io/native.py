@@ -449,16 +449,22 @@ def format_name_float_lines(names_blob: bytes, name_off: np.ndarray,
     return out.raw[:n]
 
 
-def names_blob(names: list[str]) -> tuple[bytes | None, np.ndarray | None]:
-    """(blob, offsets int64 [N + 1]) of ``names`` as
-    ``format_name_float_lines`` reads them, or (None, None) where the
-    library is unavailable.  Built once per index, not per query."""
-    if not available():
-        return None, None
+def encode_names(names: list[str]) -> tuple[bytes, np.ndarray]:
+    """(blob, offsets int64 [N + 1]): ``names`` UTF-8 encoded end to end,
+    name i at ``blob[off[i]:off[i + 1]]``."""
     enc = [n.encode() for n in names]
     off = np.zeros(len(enc) + 1, dtype=np.int64)
     np.cumsum([len(b) for b in enc], out=off[1:])
     return b"".join(enc), off
+
+
+def names_blob(names: list[str]) -> tuple[bytes | None, np.ndarray | None]:
+    """``encode_names(names)`` as ``format_name_float_lines`` reads them,
+    or (None, None) where the library is unavailable.  Built once per
+    index, not per query."""
+    if not available():
+        return None, None
+    return encode_names(names)
 
 
 def write_name_float_lines(out, names, blob: bytes | None,

@@ -66,6 +66,8 @@ _SIGNATURES = {
     # mode, measure, touch, stream
     "mkssd_abv_post_walk": [_P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P,
                             _P],
+    # blob, off, n_names, ids, vals, n, scratch, out, out_cap, stream
+    "mkssd_abv_format_lines": [_P, _P, _LL, _P, _P, _LL, _P, _P, _LL, _P],
 }
 
 _lib = None

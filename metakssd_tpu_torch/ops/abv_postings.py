@@ -29,15 +29,19 @@ What is staged (``StagedPostings``, cached under (abspath(refdir), the
   ascending within a species (checked when staged);
 - ``pct``: float32 [nnz] on the device, each posting's percentage;
 - ``names_blob``, ``names_off`` (bytes, int64 [N + 1]): the sample names
-  as the text formatter reads them, built once (None where the host
-  library is missing; the NumPy lines then use ``index.names``).
+  as the host's text formatter reads them, built once (None where the
+  host library is missing; the NumPy lines then use ``index.names``);
+- ``text``: on a card, the names and the text's buffers there
+  (``abv_text.CardText``), so that each query's text is formatted on the
+  card; None on the CPU, whose text the host writer makes.
 
 ``postings_search_batch(staged, queries, mode)``, looked up as a module
 attribute once a call, returns (measure float32 [B, N], touch int64
 [B, N]) as NumPy: the float32 sum before the mode's final step (L1's
 complement term included, cosine's division not) and the walk position of
 each sample's first posting, -1 (measure 0) where it shares no species.
-Ranking and text follow on the host.
+Ranking follows on the host; the text on the card where the index is
+staged there (``write_lines``), else on the host.
 
 Each call of ``abv_search_postings`` is one ``TIMER`` stage
 ``abv.post.search`` holding ``abv.post.db`` (``abv.post.stage`` on a cache
@@ -45,8 +49,10 @@ miss), ``abv.post.queries``, ``abv.post.batch`` (``abv.post.walk``: the
 queries' upload and the walk; ``abv.post.readback``) and per query
 ``abv.post.rank`` and ``abv.post.format``; counters ``abv.post.kernel``
 (launches of the kernel), ``abv.post.postings`` (postings walked: the
-query species' posting counts summed) and ``abv.post.lines`` (the text's
-data lines).
+query species' posting counts summed), ``abv.post.lines`` (the text's
+data lines) and, on a card, ``abv.post.format.card`` (lines formatted
+there) and ``abv.post.format.host`` (lines of queries whose text fell
+back to the host writer).
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from metakssd_tpu_torch.device import resolve_device
 from metakssd_tpu_torch.formats.abv import (BINVEC_DIRNAME, AbvIndex,
                                             read_abv_file)
 from metakssd_tpu_torch.io import native as native_io
+from metakssd_tpu_torch.ops.abv_text import CardText
 from metakssd_tpu_torch.utils import TIMER
 
 HEADERS = {0: "CosineXY", 1: "L1norm", 2: "L2norm"}
@@ -80,6 +87,7 @@ class StagedPostings:
     pct: torch.Tensor
     names_blob: bytes | None
     names_off: np.ndarray | None
+    text: CardText | None = None
 
     @property
     def n_samples(self) -> int:
@@ -108,7 +116,9 @@ def stage_postings(index: AbvIndex, device) -> StagedPostings:
             raise ValueError("abv index: postings not in sample order within "
                              "a species (search it with --device host)")
     return StagedPostings(index, starts, torch.from_numpy(starts).to(device),
-                          ids, pct, *native_io.names_blob(index.names))
+                          ids, pct, *native_io.names_blob(index.names),
+                          CardText.stage(index.names, ids.device)
+                          if ids.device.type == "cuda" else None)
 
 
 _POSTINGS_CACHE: dict = {}
@@ -303,6 +313,24 @@ def rank(measure: np.ndarray, touch: np.ndarray, mode: int,
     return ids[order], (np.sqrt(vals) if mode == 2 else vals)
 
 
+def write_lines(staged: StagedPostings, out, ids: np.ndarray,
+                vals: np.ndarray) -> None:
+    """Write one query's ranked lines ``name\t%f\n`` (samples ``ids``,
+    printed values ``vals``) to ``out``: formatted on the card where
+    ``staged.text`` is there, unless a value is one the kernel cannot
+    print exactly, and then, as on the CPU, by the host writer."""
+    text = staged.text.text(ids, vals) if staged.text is not None else None
+    if text is not None:
+        TIMER.count("abv.post.format.card", ids.size)
+        out.write(text)
+        return
+    if staged.text is not None:
+        TIMER.count("abv.post.format.host", ids.size)
+    native_io.write_name_float_lines(out, staged.index.names,
+                                     staged.names_blob, staged.names_off,
+                                     ids, vals)
+
+
 def abv_search_postings(refdir: str, queries: list[str], mode: int = 0,
                         out=None, *, device) -> None:
     """``composite -s <mode>`` on ``device`` (``cuda`` or ``cpu``): the
@@ -341,7 +369,5 @@ def abv_search_postings(refdir: str, queries: list[str], mode: int = 0,
                                  qs[it][1], staged.index.y_l2n)
             with TIMER.stage("abv.post.format"):
                 out.write(f"#Sample\t{HEADERS[mode]}\n")
-                native_io.write_name_float_lines(
-                    out, staged.index.names, staged.names_blob,
-                    staged.names_off, ids, vals)
+                write_lines(staged, out, ids, vals)
             TIMER.count("abv.post.lines", ids.size)

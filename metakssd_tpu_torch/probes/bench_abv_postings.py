@@ -30,7 +30,20 @@ over REPS launches after two warm-ups, queries taken in turns), its bound
 (the query's postings, 8 bytes each, plus the outputs, 12 bytes a
 sample, over 3.35 TB/s), ``postings_search_batch``'s ms a call on the host
 clock (CSR, upload, launch, readback) and the launches counted by
-``abv.post.kernel``.  ``chip_smoke.py`` runs this module's ``run``.
+``abv.post.kernel``.
+
+Last, the text formatter ``mkssd_abv_format_lines`` (``ops/abv_text.py``)
+at the benchmark cell's shape: SAMPLES names of the cell's form and
+FORMAT_LINES ranked lines of L2-like values (the roots of float32 sums
+up to 20,000).  Its text must equal the host writer's
+(``io/native.write_name_float_lines``) byte for byte; then one JSON line:
+the kernel pair's ms (CUDA events over REPS calls of ``format_lines``),
+its bound (the lines' 12 bytes of input, the names' offsets, the names'
+bytes it gathers and the text it writes, over 3.35 TB/s), the query's
+text on the card's route on the host clock (``CardText.text``: upload,
+kernels, two readbacks, decode), the host writer's time on the same
+lines and the plain twin's (``format_lines_plain``, Python).
+``chip_smoke.py`` runs this module's ``run``.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ SAMPLES = 382_016
 SPECIES = 85_205
 NNZ = (30, 383, 3000)
 QUERIES_PER_NNZ = 4
+FORMAT_LINES = 378_000    # ranked lines of the cell's query (PERF.md)
 REPS = 20
 MODES = (2, 1, 0)
 PEAK_BYTES = 3.35e12
@@ -234,9 +248,65 @@ def time_cases(staged, seed: int, plain_ms: dict) -> list[dict]:
     return lines
 
 
+def format_case(seed: int, device, samples: int = SAMPLES,
+                lines: int = FORMAT_LINES, reps: int = REPS) -> dict:
+    """The text formatter checked against the host writer and timed, as
+    the module docstring says; raises where the texts differ."""
+    import io
+    import numpy as np
+    import torch
+    from metakssd_tpu_torch.io import native as native_io
+    from metakssd_tpu_torch.ops import abv_text
+    dev = torch.device(device)
+    names = [f"SRR{10_000_000 + i}.abv" for i in range(samples)]
+    t = time.perf_counter()
+    card = abv_text.CardText.stage(names, dev)
+    stage_ms = 1e3 * (time.perf_counter() - t)
+    rng = np.random.default_rng([seed, 4])
+    ids = rng.permutation(samples)[:lines].astype(np.int64)
+    vals = np.sqrt(rng.random(lines, dtype=np.float32).astype(np.float64)
+                   * np.float32(20000.0))
+    blob, off = native_io.names_blob(names)
+    host = io.StringIO()
+    t = time.perf_counter()
+    native_io.write_name_float_lines(host, names, blob, off, ids, vals)
+    host_ms = 1e3 * (time.perf_counter() - t)
+    path = []
+    for _ in range(3):
+        t = time.perf_counter()
+        text = card.text(ids, vals)
+        path.append(1e3 * (time.perf_counter() - t))
+    if text != host.getvalue():
+        raise AssertionError("format_lines: the card's text differs from "
+                             "the host writer's")
+    n = ids.size
+    args = (card.blob, card.off, card.lines[8 * n:12 * n].view(torch.int32),
+            card.lines[:8 * n].view(torch.float64), card.scratch, card.out)
+    before = abv_text.LAUNCHES
+    ms = (_events_ms(lambda i: abv_text.format_lines(*args), reps)
+          if dev.type == "cuda" else None)
+    launches = abv_text.LAUNCHES - before
+    cpu = [a.cpu() for a in args]
+    t = time.perf_counter()
+    abv_text.format_lines_plain(*cpu)
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    off = card.off.cpu().numpy()
+    nbytes = 12 * n + off.nbytes + int((off[ids + 1] - off[ids]).sum()) \
+        + len(text)
+    rec = {"kernel": "mkssd_abv_format_lines", "samples": samples,
+           "lines": n, "text_bytes": len(text), "ms": ms,
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_bytes": nbytes,
+           "plain_ms": plain_ms, "path_ms": sorted(path)[1],
+           "host_writer_ms": host_ms, "stage_ms": stage_ms,
+           "launches": launches, "text_equal": True}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def run(seed: int = 0) -> dict:
-    """Stage, check, then time, at the whole DB's shape; returns the
-    records and the check's counts."""
+    """Stage, check, then time the walk at the whole DB's shape, then the
+    text formatter at the cell's; returns the records and the check's
+    counts."""
     import torch
     dev = torch.device("cuda")
     t = time.time()
@@ -248,6 +318,9 @@ def run(seed: int = 0) -> dict:
           flush=True)
     got = check(staged, seed)
     lines = time_cases(staged, seed, got.pop("plain_ms"))
+    del staged
+    torch.cuda.empty_cache()
+    fmt = format_case(seed, dev)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
@@ -255,9 +328,7 @@ def run(seed: int = 0) -> dict:
     tail = {"card": card[0] if card else torch.cuda.get_device_name(0),
             "postings": nnz, **got}
     print(json.dumps(tail), flush=True)
-    del staged
-    torch.cuda.empty_cache()
-    return {"lines": lines, **tail}
+    return {"lines": lines, "format": fmt, **tail}
 
 
 def main(argv=None) -> int:

@@ -26,10 +26,13 @@ from metakssd_tpu import composite as jax_composite
 from metakssd_tpu.formats.costat import CoStat
 
 import ref_abv_search
+import text_cases
 from metakssd_tpu_torch import cli, composite
 from metakssd_tpu_torch.formats.abv import (AbvIndex, read_abv_file,
                                             write_abv_file)
-from metakssd_tpu_torch.ops import abv_postings
+from metakssd_tpu_torch.io import native as native_io
+from metakssd_tpu_torch.ops import abv_postings, abv_text
+from metakssd_tpu_torch.utils import TIMER
 
 
 def _index(refdir, vectors: list, nspecies: int) -> str:
@@ -325,6 +328,9 @@ def test_spans_and_counters(seeded_db, mode, capsys, monkeypatch):
     data = [ln for ln in out.splitlines() if ln and not ln.startswith("#")]
     assert rep["counters"]["abv.post.lines"] == len(data) > len(qs)
     assert "abv.post.kernel" not in rep["counters"]   # no launch on the CPU
+    # the CPU's text is the host writer's, counted neither way
+    assert not {"abv.post.format.card", "abv.post.format.host"} & \
+        set(rep["counters"])
 
 
 def test_queries_walked_in_batches(seeded_db, capsys, monkeypatch):
@@ -394,6 +400,17 @@ def test_probe_check_counts_what_differs(monkeypatch, capsys):
         capsys.readouterr().out
 
 
+def test_probe_format_case_on_the_cpu():
+    """The probe's text case (``probes/bench_abv_postings.format_case``),
+    drawn small on the CPU: the twin's text equals the host writer's and
+    the record counts its bytes; no kernel is timed or launched."""
+    from metakssd_tpu_torch.probes import bench_abv_postings as probe
+    rec = probe.format_case(3, "cpu", samples=3000, lines=2000, reps=1)
+    assert rec["text_equal"] and rec["lines"] == 2000
+    assert rec["ms"] is None and rec["launches"] == 0
+    assert rec["bound_bytes"] > 12 * 2000 + rec["text_bytes"] > 2000 * 20
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_text_writer_native_equals_numpy(seeded_db, mode):
     """The ranked-text writer that ``composite.abv_search`` and this
@@ -418,3 +435,150 @@ def test_text_writer_native_equals_numpy(seeded_db, mode):
                                       ids, vals)
         got[blob is None] = out.getvalue()
     assert got[True] == got[False] and got[True].count("\n") == ids.size
+
+
+def test_f6_plain_prints_as_printf():
+    """The text kernel's arithmetic, in its plain twin: every printed
+    value byte for byte as ``"%f"`` (ties at the seventh decimal, -0.0,
+    negatives that round to -0.000000, subnormals, 9e12), and every
+    value above 9e12 in magnitude or not finite flagged."""
+    for v in text_cases.PRINTED:
+        assert abv_text.f6_plain(v) == ("%f" % v).encode(), v
+    for v in text_cases.FLAGGED:
+        assert abv_text.f6_plain(v) is None, v
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_text_twin_equals_host_writer(mode):
+    """The text kernel's plain twin (``format_lines`` on CPU tensors, as
+    ``CardText.text`` runs it) against the host writer over the names
+    blob and without it, and ``"%f"``: 10^5 values of the mode's range
+    and the crafted values, names of 0 to 64 characters."""
+    rng = np.random.default_rng(mode)
+    vals = np.concatenate([text_cases.mode_values(mode, 100_000, rng),
+                           text_cases.PRINTED])
+    names = text_cases.names_of_lengths(vals.size + 50, rng)
+    ids = rng.permutation(len(names))[:vals.size]
+    got = abv_text.CardText.stage(names, "cpu").text(ids, vals)
+    want = "".join(f"{names[i]}\t{v:f}\n" for i, v in zip(ids, vals))
+    assert got == want
+    blob, off = native_io.names_blob(names)
+    for b, o in ((blob, off), (None, None)):
+        out = io.StringIO()
+        native_io.write_name_float_lines(out, names, b, o, ids, vals)
+        assert out.getvalue() == want
+
+
+def test_twin_flags_what_it_cannot_print():
+    """``format_lines`` on CPU tensors: the flagged values and a sample
+    outside the names are counted in ``scratch[1]`` and left out of the
+    text; ``CardText.text`` then returns None."""
+    names = ["a", "bb", ""]
+    card = abv_text.CardText.stage(names, "cpu")
+    vals = torch.tensor([1.5, *text_cases.FLAGGED, 2.0], dtype=torch.float64)
+    ids = torch.tensor([0] * (vals.numel() - 1) + [3], dtype=torch.int32)
+    scratch = torch.zeros(3, dtype=torch.int64)
+    out = torch.zeros(64, dtype=torch.uint8)
+    abv_text.format_lines(card.blob, card.off, ids, vals, scratch, out)
+    assert scratch[:2].tolist() == [len("a\t1.500000\n"),
+                                    len(text_cases.FLAGGED) + 1]
+    assert bytes(out[:scratch[0]].tolist()) == b"a\t1.500000\n"
+    assert card.text(np.array([1, 2]), np.array([3.0, np.inf])) is None
+    assert card.text(np.array([1, 2]), np.array([3.0, -0.0])) == \
+        "bb\t3.000000\n\t-0.000000\n"
+    with pytest.raises(ValueError):
+        abv_text.format_lines(card.blob, card.off, ids.long(), vals, scratch,
+                              out)
+
+
+@pytest.mark.parametrize("flag", [None, np.inf, np.nan, 1e15,
+                                  text_cases.NEXT_ABOVE])
+def test_flagged_line_sends_query_to_host_writer(seeded_db, flag):
+    """``write_lines`` with the card's text buffers (here on the CPU, so
+    through the twin): a query with no flagged value is formatted there
+    and counted in ``abv.post.format.card``; one flagged value sends the
+    whole query to the host writer, counted in ``abv.post.format.host``.
+    The text is the host writer's either way."""
+    staged = abv_postings.stage_postings(AbvIndex.read(seeded_db), "cpu")
+    assert staged.text is None
+    staged.text = abv_text.CardText.stage(staged.index.names, "cpu")
+    q = read_abv_file(os.path.join(seeded_db, "abundance_Vec",
+                                   staged.index.names[7]))
+    measure, touch = abv_postings.postings_search_batch(staged, [q], 2)
+    ids, vals = abv_postings.rank(measure[0], touch[0], 2, q[1],
+                                  staged.index.y_l2n)
+    if flag is not None:
+        vals[ids.size // 2] = flag
+    want = io.StringIO()
+    native_io.write_name_float_lines(want, staged.index.names,
+                                     staged.names_blob, staged.names_off,
+                                     ids, vals)
+    before = {k: TIMER.counters.get(k, 0) for k in
+              ("abv.post.format.card", "abv.post.format.host")}
+    launches = abv_text.LAUNCHES
+    out = io.StringIO()
+    abv_postings.write_lines(staged, out, ids, vals)
+    assert out.getvalue() == want.getvalue() and ids.size > 100
+    got = {k: TIMER.counters.get(k, 0) - v for k, v in before.items()}
+    assert got == ({"abv.post.format.card": ids.size,
+                    "abv.post.format.host": 0} if flag is None else
+                   {"abv.post.format.card": 0,
+                    "abv.post.format.host": ids.size})
+    assert abv_text.LAUNCHES == launches          # no kernel on the CPU
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_search_text_through_the_twin(seeded_db, mode, capsys):
+    """``abv_search_postings`` with the card's text buffers on the staged
+    index (on the CPU, through the twin) prints the host route's text,
+    every line counted in ``abv.post.format.card``."""
+    qs = _queries(seeded_db)
+    want = _cli(["composite", "-r", seeded_db, "-s", str(mode), *qs],
+                "host", capsys)
+    staged = abv_postings._postings_db(seeded_db, torch.device("cpu"))
+    staged.text = abv_text.CardText.stage(staged.index.names, "cpu")
+    try:
+        TIMER.reset()
+        out = io.StringIO()
+        abv_postings.abv_search_postings(seeded_db, qs, mode, out=out,
+                                         device="cpu")
+    finally:
+        staged.text = None
+    assert out.getvalue() == want
+    assert TIMER.counters["abv.post.format.card"] == \
+        TIMER.counters["abv.post.lines"] > len(qs)
+    assert "abv.post.format.host" not in TIMER.counters
+
+
+def test_card_text_shared_by_threads():
+    """``CardText.text`` from more threads than cores on one staged set
+    of buffers (on the CPU, through the twin), with a short switch
+    interval: every text is its own query's."""
+    import sys
+    import threading
+    rng = np.random.default_rng(7)
+    names = text_cases.names_of_lengths(3000, rng, 20)
+    card = abv_text.CardText.stage(names, "cpu")
+    jobs = [(rng.permutation(3000)[:1500], text_cases.mode_values(k % 3,
+                                                                  1500, rng))
+            for k in range(2 * (os.cpu_count() or 4))]
+    got = [None] * len(jobs)
+
+    def work(k):
+        for _ in range(3):
+            got[k] = card.text(*jobs[k])
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    for (ids, vals), text in zip(jobs, got):
+        assert text == "".join(f"{names[i]}\t{v:f}\n"
+                               for i, v in zip(ids, vals))

@@ -1,5 +1,7 @@
 """The postings walk kernel (``csrc/abv.cu``, ``mkssd_abv_post_walk``) on
-the card against its plain twin on the CPU, bit for bit.
+the card against its plain twin on the CPU, bit for bit; the text kernel
+(``mkssd_abv_format_lines``, ``ops/abv_text.py``) against the host writer
+and its twin, byte for byte.
 
 Every test here carries the ``cuda`` marker and skips where there is no
 CUDA device.  The module imports neither jax nor the JAX package, so on a
@@ -15,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+import text_cases
 from metakssd_tpu_torch.formats.abv import AbvIndex, write_abv_file
-from metakssd_tpu_torch.ops import abv_postings
+from metakssd_tpu_torch.io import native as native_io
+from metakssd_tpu_torch.ops import abv_postings, abv_text
 from metakssd_tpu_torch.utils import TIMER
 
 pytestmark = pytest.mark.cuda
@@ -135,7 +139,10 @@ def test_kernel_equals_twin_bits(cuda, index, case, mode, monkeypatch):
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_text_on_the_card_equals_cpu(cuda, index, tmp_path, mode):
     """``composite -s <mode>`` text on ``cuda`` and ``cpu``, byte for
-    byte, from the index's files."""
+    byte, from the index's files; on the card every line formatted by
+    the text kernel (``abv.post.format.card`` equal to
+    ``abv.post.lines``, ``abv.post.format.host`` 0), one call of it a
+    query that has lines."""
     index.write(str(tmp_path))
     qpaths = []
     for i, (sp, pct) in enumerate(_queries("batch5", index)):
@@ -143,12 +150,20 @@ def test_text_on_the_card_equals_cpu(cuda, index, tmp_path, mode):
         write_abv_file(qpaths[-1], sp, pct)
     got = {}
     for dev in ("cpu", "cuda"):
+        TIMER.reset()
+        launches = abv_text.LAUNCHES
         out = io.StringIO()
         abv_postings.abv_search_postings(str(tmp_path), qpaths, mode,
                                          out=out, device=dev)
         got[dev] = out.getvalue()
+        launches = abv_text.LAUNCHES - launches
     assert got["cuda"] == got["cpu"] and got["cpu"].count("#Sample") == 5
     assert os.path.exists(str(tmp_path / "abundance_Vec.abm"))
+    blocks = got["cuda"].split("#Sample\t")[1:]
+    assert launches == sum(b.count("\n") > 1 for b in blocks) == 4
+    assert TIMER.counters["abv.post.format.card"] == \
+        TIMER.counters["abv.post.lines"] > 5
+    assert TIMER.counters.get("abv.post.format.host", 0) == 0
 
 
 def test_launch_checks(cuda, index):
@@ -182,3 +197,61 @@ def test_probe_check_on_the_card(cuda):
     got = probe.check(staged, 9, sizes=(30, 383))
     assert got["measures_differ"] == got["touches_differ"] == 0
     assert got["max_abs_err"] == 0.0
+
+
+CELL_SAMPLES = 382_016       # the postings cell's samples
+CELL_LINES = 378_000         # ... and about the lines of its queries
+
+
+def test_text_kernel_at_the_cell_shape(cuda):
+    """The text kernel's bytes equal the host writer's at the postings
+    cell's shape: 382,016 names of its form, 378,000 lines of L2 values,
+    one call of the kernel."""
+    names = [f"SRR{10_000_000 + i}.abv" for i in range(CELL_SAMPLES)]
+    rng = np.random.default_rng(22)
+    ids = rng.permutation(CELL_SAMPLES)[:CELL_LINES]
+    vals = text_cases.mode_values(2, CELL_LINES, rng)
+    card = abv_text.CardText.stage(names, cuda)
+    launches = abv_text.LAUNCHES
+    got = card.text(ids, vals)
+    assert abv_text.LAUNCHES == launches + 1
+    want = io.StringIO()
+    native_io.write_name_float_lines(want, names, *native_io.names_blob(names),
+                                     ids, vals)
+    assert got == want.getvalue()
+    assert got.count("\n") == CELL_LINES
+
+
+@pytest.mark.parametrize("longest", [16, 64])
+def test_text_kernel_crafted(cuda, longest):
+    """On the card, names of 0 to ``longest`` characters (at 64 a block's
+    text outgrows shared memory and goes to device memory directly),
+    values of every mode and the crafted ones: the text equals the
+    twin's and ``"%f"``'s; the flagged values and a sample outside the
+    names are counted as the twin counts them, and ``CardText.text``
+    returns None for a query that holds one."""
+    rng = np.random.default_rng(longest)
+    vals = np.concatenate([text_cases.mode_values(m, 20_000, rng)
+                           for m in (0, 1, 2)] + [text_cases.PRINTED])
+    names = text_cases.names_of_lengths(vals.size, rng, longest)
+    ids = rng.permutation(len(names))
+    card = abv_text.CardText.stage(names, cuda)
+    got = card.text(ids, vals)
+    assert got == "".join(f"{names[i]}\t{v:f}\n" for i, v in zip(ids, vals))
+    bad = np.concatenate([vals[:3000], text_cases.FLAGGED])
+    bad_ids = np.concatenate([ids[:3000 + len(text_cases.FLAGGED)],
+                              [len(names)]]).astype(np.int32)
+    bad = np.concatenate([bad, [1.0]])
+    counts = {}
+    for dev in ("cpu", cuda):
+        t = abv_text.CardText.stage(names, dev) if dev == "cpu" else card
+        scratch = torch.zeros_like(t.scratch)
+        out = torch.zeros_like(t.out)
+        abv_text.format_lines(t.blob, t.off,
+                              torch.from_numpy(bad_ids).to(dev),
+                              torch.from_numpy(bad).to(dev), scratch, out)
+        total, flagged = scratch[:2].tolist()
+        counts[str(dev)] = (total, flagged, bytes(out[:total].cpu().numpy()))
+    assert counts["cpu"] == counts["cuda"]
+    assert counts["cuda"][1] == len(text_cases.FLAGGED) + 1
+    assert card.text(ids[:5], np.array([1.0, 2.0, np.nan, 3.0, 4.0])) is None
