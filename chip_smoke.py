@@ -166,21 +166,20 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    (96 DB vectors, 32 perturbed copies) through ``composite -s 0/1/2``
    over the index's postings: the text of ``--device cuda`` (the walk
    kernel ``mkssd_abv_post_walk``, launched once a call of
-   ``postings_search_batch``, counted by ``abv.post.kernel``; every
-   line formatted on the card, ``abv.post.format.card`` equal to
-   ``abv.post.lines``, ``abv.post.format.host`` 0, one call of the text
-   kernel ``mkssd_abv_format_lines`` a query with lines) and
-   ``--device cpu`` (its plain twin, no launch; on 8 of the queries)
-   byte-identical to ``--device host`` (``composite.abv_search``);
-   ``--dense`` on the card (a
+   ``postings_search_batch``) and ``--device cpu`` (its plain twin, no
+   launch; on 8 of the queries) byte-identical to ``--device host``
+   (``composite.abv_search``); ``--dense`` on the card (a
    1 GiB float32 DB) with the sparse path's overlap sets, within 2e-3 of
    its measures (a query's L2 to itself exactly 0, as the sparse path's)
    and every DB query its own top cosine hit; ``--dense --device cpu`` on
-   8 queries within 2e-3 of the card's; in each dense leg
-   ``dense_abv.LAUNCHES`` (zeroed before it) and the ``abv.kernel``
-   counter equal the calls of ``abv_search_batch`` on the card (at least
-   one) and read 0 on the CPU, and ``abv.columns`` equals the queries'
-   nonzeros;
+   8 queries within 2e-3 of the card's; in each dense leg the gather's
+   launches (``_build.LAUNCHES``) equal the calls of ``abv_search_batch``
+   on the card (at least one) and read 0 on the CPU, and ``abv.columns``
+   equals the queries' nonzeros; on every card leg of both routes each
+   line formatted on the card (``<route>.format.card`` equal to
+   ``<route>.lines``, ``<route>.format.host`` 0, for ``abv`` and
+   ``abv.post``), one call of the text kernel ``mkssd_abv_format_lines``
+   a query with lines;
 7b. abv kernel: ``probes/bench_abv.run``: the dense search's gather
    kernel ``mkssd_abv_gather`` at the benchmark's shape (47,752 x 85,205
    float32, 16.3 GB), held to its plain twin on the card at query sizes
@@ -203,9 +202,9 @@ Phases, in order; each prints its seconds, and any failure exits non-zero:
    names, 378,000 lines), its text equal to the host writer's, timed
    beside its byte bound, the card route's host-clock time, the host
    writer's and the plain twin's.  The kernels line's launches are those
-   of phase 7's dense legs (``launches_by_leg``), the probe's apart, and
-   the postings walk's and the text kernel's those of phase 7's ``-s``
-   legs on the card;
+   of phase 7's dense legs (``launches_by_leg``), the probe's apart, the
+   postings walk's those of its ``-s`` legs on the card and the text
+   kernel's those of both routes' card legs;
 8. probes: the probe path P1-P4, the port's counterparts of the TPU
    probes of ``benchmarks/`` (``metakssd_tpu_torch/probes/``), each at its
    file's shapes (2^24 windows per dispatch) and timing method (16
@@ -856,7 +855,7 @@ def _tsv_rows(path: str) -> list:
 def phase_slice(work: str, seed: int) -> dict:
     import torch
     from metakssd_tpu_torch import cli
-    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.ops import _build
     from metakssd_tpu_torch.pipeline import TIMER
 
     t0 = time.time()
@@ -869,22 +868,22 @@ def phase_slice(work: str, seed: int) -> dict:
     out = os.path.join(work, "profile_cuda")
 
     torch.cuda.reset_peak_memory_stats()
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     t = time.time()
     check(cli.main(["dist", "-L", shufp, "-o", db, "--device", "cuda",
                      gdir]) == 0, "dist (MarkerDB build) failed")
     dist_s = time.time() - t
-    dist_launches = dict(sketch_cuda.LAUNCHES)
+    dist_launches = dict(_build.LAUNCHES)
     print(f"  dist    {dist_s:.3f} s  launches {dist_launches}", flush=True)
     check(dist_launches["sketch_compact"] > 0,
            f"K1 never launched in dist: {dist_launches}")
 
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     t = time.time()
     check(cli.main(["profile", "-L", shufp, "-r", db, "-o", out,
                      "--device", "cuda", fq]) == 0, "profile failed")
     profile_s = time.time() - t
-    launches = dict(sketch_cuda.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     stages = stage_seconds(TIMER)
     peak = torch.cuda.max_memory_allocated()
     print(f"  profile {profile_s:.3f} s  launches {launches}  stages "
@@ -1027,7 +1026,7 @@ def phase_stage1_flags(work: str, seed: int, sres: dict) -> dict:
     from metakssd_tpu_torch import composite, pipeline
     from metakssd_tpu_torch.formats.codir import CoDir
     from metakssd_tpu_torch.io import native
-    from metakssd_tpu_torch.ops import merge, sketch, sketch_cuda
+    from metakssd_tpu_torch.ops import _build, merge, sketch
     shufp, fq, sub = sres["shuf"], sres["fastq"], sres["subset"]
     check(native.available(), "--ckpt streams through the host library, "
                               "which did not build")
@@ -1036,10 +1035,10 @@ def phase_stage1_flags(work: str, seed: int, sres: dict) -> dict:
     # --byread on the 4M-read fastq: K1 with positions, the poly-A block's
     # chunk through K2
     br = os.path.join(work, "byread_cuda")
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     secs["dist --byread"] = run_cli("dist --byread --device cuda", [
         "dist", "-L", shufp, "--byread", "-o", br, "--device", "cuda", fq])
-    br_launches = dict(sketch_cuda.LAUNCHES)
+    br_launches = dict(_build.LAUNCHES)
     print(f"  byread launches {br_launches}", flush=True)
     check(br_launches["sketch_compact"] > 0 and
           br_launches["sketch_full"] > 0,
@@ -1126,11 +1125,11 @@ def phase_stage1_flags(work: str, seed: int, sres: dict) -> dict:
 
     # profile --shard-db 1: K3 matches the sample's ids on the card
     shard = os.path.join(work, "profile_shard")
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     secs["profile --shard-db 1"] = run_cli("profile --shard-db 1", [
         "profile", "-L", shufp, "-r", sres["markerdb"], "-o", shard,
         "--shard-db", "1", "--device", "cuda", fq])
-    sd_launches = dict(sketch_cuda.LAUNCHES)
+    sd_launches = dict(_build.LAUNCHES)
     print(f"  shard-db launches {sd_launches}", flush=True)
     _same_files(shard, sres["profile"], PROFILE_TSVS, "profile --shard-db 1")
     ref = CoDir.read(sres["markerdb"], want_abund=False)
@@ -1201,7 +1200,7 @@ def phase_search(work: str, seed: int) -> dict:
     and through ``--shard-db 1``; all four distance.out byte-identical."""
     import numpy as np
     import torch
-    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.ops import _build
     from metakssd_tpu_torch.formats.codir import CoDir
 
     gdir = os.path.join(work, "genomes")
@@ -1209,10 +1208,10 @@ def phase_search(work: str, seed: int) -> dict:
     write_zero_accepted_shuf(shufp, K8S5L2, seed)
     refco, qryco = os.path.join(work, "refco"), os.path.join(work, "qryco")
     torch.cuda.reset_peak_memory_stats()
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     run_cli("dist (reference)", ["dist", "-L", shufp, "-o", refco,
                                   "--device", "cuda", gdir])
-    check(sketch_cuda.LAUNCHES["sketch_compact"] > 0,
+    check(_build.LAUNCHES["sketch_compact"] > 0,
            "K1 never launched in the reference build")
     t = time.time()
     qdir, truth = make_search_queries(work, gdir, seed)
@@ -1223,10 +1222,10 @@ def phase_search(work: str, seed: int) -> dict:
 
     out = {k: os.path.join(work, f"d_{k}")
            for k in ("cuda", "cpu", "mco", "shard")}
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     secs = {"cuda": run_cli("dist -r --device cuda", [
         "dist", "-r", refco, "-o", out["cuda"], "--device", "cuda", qryco])}
-    launches = dict(sketch_cuda.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     print(f"  search launches {launches}", flush=True)
     ref, qry = CoDir.read(refco), CoDir.read(qryco)
     comps = [c for c in range(ref.stat.comp_num)
@@ -1249,11 +1248,11 @@ def phase_search(work: str, seed: int) -> dict:
         "dist", "-r", refmco, "-o", out["mco"], "--device", "cuda", qryco])
     # --shard-db 1: K3 in values mode once per (query, component), the
     # query's distinct ids as haystack (indexed from 16 ids)
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     secs["shard"] = run_cli("dist -r --shard-db 1", [
         "dist", "-r", refco, "--shard-db", "1", "-o", out["shard"],
         "--device", "cuda", qryco])
-    shard_launches = dict(sketch_cuda.LAUNCHES)
+    shard_launches = dict(_build.LAUNCHES)
     print(f"  dist -r --shard-db 1 launches {shard_launches}", flush=True)
     sizes = [np.unique(qry.genome_ids(c, q)).size
              for c in range(ref.stat.comp_num) if ref.ids[c].size
@@ -1313,11 +1312,11 @@ RANKS_TIMEOUT = 300               # seconds a process of that leg may take
 def _mesh_launches(label: str, argv: list, path: str | None = None):
     """``run_cli`` (or ``_run_cli_to`` with stdout to ``path``) with the
     launch counts zeroed before it; returns (seconds, counts)."""
-    from metakssd_tpu_torch.ops import sketch_cuda
-    sketch_cuda.reset_launches()
+    from metakssd_tpu_torch.ops import _build
+    _build.reset_launches()
     dt = run_cli(label, argv) if path is None else \
         _run_cli_to(label, argv, path)
-    got = dict(sketch_cuda.LAUNCHES)
+    got = dict(_build.LAUNCHES)
     print(f"  {label} launches {got}", flush=True)
     return dt, got
 
@@ -1753,7 +1752,7 @@ def phase_set(work: str, seed: int, sres: dict) -> dict:
     """The set leg: the synthetic MarkerDB build on cuda (K3 counted) and
     on cpu, byte-identical dirs; then the real chain."""
     import torch
-    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.ops import _build
     from metakssd_tpu_torch.formats.codir import CoDir
     from metakssd_tpu_torch.pipeline import CoStat
     t = time.time()
@@ -1762,10 +1761,10 @@ def phase_set(work: str, seed: int, sres: dict) -> dict:
           f"{SET_TAXA} taxa, {nids} ids ({4 * nids / 2**20:.1f} MiB of u32) "
           f"in {time.time() - t:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     secs: dict = {}
     wd = {"cuda": set_leg(work, "cuda", co, taxf, secs)}
-    launches = dict(sketch_cuda.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"  set leg launches {launches}; peak device "
           f"memory {peak / 2**20:.1f} MiB", flush=True)
@@ -1811,11 +1810,11 @@ def phase_host(work: str, sres: dict, qres: dict, setres: dict) -> None:
     same phase and no kernel launched; each verb's seconds printed beside
     the card's, with the host library's build."""
     from metakssd_tpu_torch.io import native
-    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.ops import _build
     kind = native.build_kind()
     check(kind is not None, "--device host: no host library loaded")
     j = lambda name: os.path.join(work, name)   # noqa: E731
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     rows = []
     db = j("host_markerdb")
     rows.append(("dist (1024 genomes)", run_cli("dist --device host", [
@@ -1856,7 +1855,7 @@ def phase_host(work: str, sres: dict, qres: dict, setres: dict) -> None:
         text = a.read()
         check(text and text == b.read(), "composite -q --device host "
                                          "against phase 6's chain")
-    launches = {k: v for k, v in sketch_cuda.LAUNCHES.items() if v}
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     check(not launches, f"--device host launched kernels: {launches}")
     # a fresh process on this machine, where a card is present: host never
     # initialises CUDA
@@ -1944,17 +1943,41 @@ def make_abv_data(work: str, refdir: str, seed: int):
     return queries, names, [int(i) for i in pick[:ABV_DB_QUERIES]]
 
 
+def _text_calls(label: str, path: str, route: str, prefix: str,
+                before: int) -> int:
+    """The text of a ``composite -s`` leg in ``path``: on the card every
+    line formatted there (``<prefix>.format.card`` equal to
+    ``<prefix>.lines``, none by the host writer), with one call of the
+    text kernel a query that has lines (``_build.LAUNCHES`` against
+    ``before``); off the card none.  Returns the text kernel's calls."""
+    from metakssd_tpu_torch.ops import _build
+    from metakssd_tpu_torch.utils import TIMER
+    lines = int(TIMER.counters.get(f"{prefix}.lines", 0))
+    card = int(TIMER.counters.get(f"{prefix}.format.card", 0))
+    host = int(TIMER.counters.get(f"{prefix}.format.host", 0))
+    with open(path) as f:
+        queries = sum(1 for b in f.read().split("#Sample\t")[1:]
+                      if b.count("\n") > 1)
+    formats = _build.LAUNCHES["abv_format_lines"] - before
+    want = (lines, 0, queries) if route == "cuda" else (0, 0, 0)
+    check((card, host, formats) == want,
+          f"{label}: ({prefix}.format.card, {prefix}.format.host, text "
+          f"kernel calls) {(card, host, formats)}, not {want} for "
+          f"{lines} lines")
+    return formats
+
+
 def _dense_leg(label: str, argv: list, path: str, route: str
-               ) -> tuple[float, int]:
+               ) -> tuple[float, int, int]:
     """``_run_cli_to`` of a ``--dense`` search, with ``abv_search_batch``
     wrapped (as the benchmark wraps it) to count its calls and their
-    query nonzeros, and ``dense_abv.LAUNCHES`` zeroed before it: on the
-    card every call must launch the gather once, counted alike by
-    ``LAUNCHES`` and the ``abv.kernel`` counter, and the ``abv.columns``
-    counter must hold every nonzero; on the CPU nothing launches.
-    Returns (seconds, launches)."""
+    query nonzeros: on the card every call must launch the gather once
+    (``_build.LAUNCHES["abv_gather"]``) and the ``abv.columns`` counter
+    must hold every nonzero; on the CPU nothing launches.  The text as
+    ``_text_calls`` checks it.  Returns (seconds, gather launches, text
+    kernel calls)."""
     import numpy as np
-    from metakssd_tpu_torch.ops import dense_abv
+    from metakssd_tpu_torch.ops import _build, dense_abv
     from metakssd_tpu_torch.utils import TIMER
     inner = dense_abv.abv_search_batch
     nnz = []
@@ -1963,33 +1986,30 @@ def _dense_leg(label: str, argv: list, path: str, route: str
         nnz.append(int(np.count_nonzero(queries)))
         return inner(dense, queries, mode=mode)
 
-    dense_abv.LAUNCHES = 0
+    before = dict(_build.LAUNCHES)
     dense_abv.abv_search_batch = counted
     try:
         secs = _run_cli_to(label, argv, path)
     finally:
         dense_abv.abv_search_batch = inner
-    got = (dense_abv.LAUNCHES, TIMER.counters.get("abv.kernel", 0),
+    got = (_build.LAUNCHES["abv_gather"] - before["abv_gather"],
            TIMER.counters.get("abv.columns", 0))
-    want = (len(nnz), len(nnz), sum(nnz)) if route == "cuda" else (0, 0, 0)
-    check(bool(nnz) and got == want, f"{label}: (LAUNCHES, abv.kernel, "
+    want = (len(nnz), sum(nnz)) if route == "cuda" else (0, 0)
+    check(bool(nnz) and got == want, f"{label}: (gather launches, "
           f"abv.columns) {got}, not {want} for {len(nnz)} calls")
-    return secs, got[0]
+    return secs, got[0], _text_calls(label, path, route, "abv",
+                                     before["abv_format_lines"])
 
 
 def _postings_leg(label: str, argv: list, path: str, route: str
                   ) -> tuple[float, int, int]:
     """``_run_cli_to`` of a ``composite -s`` search, with
     ``abv_postings.postings_search_batch`` wrapped to count its calls: on
-    the card every call must launch the postings walk once (the
-    ``abv.post.kernel`` counter), on the CPU none, and ``--device host``
-    must not reach it.  On the card every line of the text must be
-    formatted there (``abv.post.format.card`` equal to
-    ``abv.post.lines``, none by the host writer), with one call of the
-    text kernel a query that has lines (``abv_text.LAUNCHES``); off the
-    card none.  Returns (seconds, walk launches, text kernel calls)."""
-    from metakssd_tpu_torch.ops import abv_postings, abv_text
-    from metakssd_tpu_torch.utils import TIMER
+    the card every call must launch the postings walk once
+    (``_build.LAUNCHES["abv_post_walk"]``), on the CPU none, and
+    ``--device host`` must not reach it.  The text as ``_text_calls``
+    checks it.  Returns (seconds, walk launches, text kernel calls)."""
+    from metakssd_tpu_torch.ops import _build, abv_postings
     inner = abv_postings.postings_search_batch
     calls = []
 
@@ -1998,29 +2018,18 @@ def _postings_leg(label: str, argv: list, path: str, route: str
         return inner(staged, queries, mode=mode)
 
     abv_postings.postings_search_batch = counted
-    before = abv_text.LAUNCHES
+    before = dict(_build.LAUNCHES)
     try:
         secs = _run_cli_to(label, argv, path)
     finally:
         abv_postings.postings_search_batch = inner
-    got = int(TIMER.counters.get("abv.post.kernel", 0))
+    got = _build.LAUNCHES["abv_post_walk"] - before["abv_post_walk"]
     want = len(calls) if route == "cuda" else 0
     check(bool(calls) is (route != "host") and got == want,
           f"{label}: {len(calls)} calls of postings_search_batch, "
-          f"abv.post.kernel {got}, not {want}")
-    lines = int(TIMER.counters.get("abv.post.lines", 0))
-    card = int(TIMER.counters.get("abv.post.format.card", 0))
-    host = int(TIMER.counters.get("abv.post.format.host", 0))
-    with open(path) as f:
-        queries = sum(1 for b in f.read().split("#Sample\t")[1:]
-                      if b.count("\n") > 1)
-    formats = abv_text.LAUNCHES - before
-    want = (lines, 0, queries) if route == "cuda" else (0, 0, 0)
-    check((card, host, formats) == want,
-          f"{label}: (abv.post.format.card, abv.post.format.host, text "
-          f"kernel calls) {(card, host, formats)}, not {want} for "
-          f"{lines} lines")
-    return secs, got, formats
+          f"walk launches {got}, not {want}")
+    return secs, got, _text_calls(label, path, route, "abv.post",
+                                  before["abv_format_lines"])
 
 
 def phase_abv(work: str, seed: int, refdir: str) -> dict:
@@ -2041,7 +2050,7 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
-    _, _, dense = dense_abv._dense_db(refdir, dev)
+    dense = dense_abv._dense_db(refdir, dev)[2]
     torch.cuda.synchronize()
     print(f"  dense DB on the card: {tuple(dense.mat.shape)} float32 "
           f"({dense.mat.numel() * 4 / 2**30:.3f} GiB) in "
@@ -2077,12 +2086,13 @@ def phase_abv(work: str, seed: int, refdir: str) -> dict:
             txt[f"dense_{route}"] = os.path.join(
                 work, f"abv_s{mode}_dense_{route}.txt")
             label = f"composite -s {mode} --dense --device {route}"
-            secs[f"s{mode} dense {route}, {len(qs)} queries"], n = \
+            secs[f"s{mode} dense {route}, {len(qs)} queries"], n, nf = \
                 _dense_leg(label, ["composite", "-r", refdir, "-s",
                                    str(mode), "--dense", *qs, "--device",
                                    route], txt[f"dense_{route}"], route)
             if route == "cuda":
                 launches[label] = n
+                format_launches[label] = nf
         sparse = _abv_blocks(txt["cuda"], index_of)
         dense_b = _abv_blocks(txt["dense_cuda"], index_of)
         check(len(sparse) == len(dense_b) == nq, f"-s {mode}: block count")
@@ -2167,7 +2177,7 @@ def phase_probes() -> tuple[list, dict, int]:
     variant for the kernels' JSON line, the path's launch counts and the
     index's largest difference from its plain version."""
     import torch
-    from metakssd_tpu_torch.ops import merge, probe, sketch_cuda
+    from metakssd_tpu_torch.ops import _build, merge, probe
     from metakssd_tpu_torch.probes import (probe_floor_chunk,
                                            probe_floor_noread,
                                            probe_kernel_cost, probe_r4)
@@ -2176,10 +2186,10 @@ def phase_probes() -> tuple[list, dict, int]:
 
     mods = (("P1", probe_kernel_cost), ("P2", probe_r4),
             ("P3", probe_floor_chunk), ("P4", probe_floor_noread))
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     runs = [(pid, rec) for pid, mod in mods
             for rec in mod.run(reps=PROBE_REPS)]
-    launches = dict(sketch_cuda.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     print(f"  probe path launches {launches}", flush=True)
     for kern in PROBE_KERNELS:
         check(launches[kern] > 0, f"{kern} never launched: {launches}")

@@ -55,7 +55,7 @@ a leg that fails or passes its timeout: nothing falls back to the CPU.
 ``extra.device`` names what ran the legs: the card's name and power limit
 as ``nvidia-smi`` gives them, or ``cpu``; the host engine's legs ran on
 the same machine's CPU.  ``extra.launches`` has each leg's kernel launches
-(``ops/sketch_cuda.LAUNCHES``, nonzero entries) and ``extra.host_library``
+(``ops/_build.LAUNCHES``, nonzero entries) and ``extra.host_library``
 the host library's build (``io/native.build_kind``: ``serial`` where
 ``-fopenmp`` fails, as on the card's host).
 """
@@ -406,10 +406,10 @@ LEGS = {"sketch": _leg_sketch, "kernel": _leg_kernel,
 
 def _worker_main(task: str, device: str) -> int:
     """One leg in this process; prints ``WORKER_RESULT <json>``."""
-    from metakssd_tpu_torch.ops import sketch_cuda
-    sketch_cuda.reset_launches()
+    from metakssd_tpu_torch.ops import _build
+    _build.reset_launches()
     res = LEGS[task](device)
-    res["launches"] = {k: v for k, v in sketch_cuda.LAUNCHES.items() if v}
+    res["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
     print("WORKER_RESULT " + json.dumps(res), flush=True)
     return 0
 

@@ -21,6 +21,15 @@ BINVEC_DIRNAME = "abundance_Vec"
 _ABV_DT = np.dtype([("ref_idx", "<i4"), ("pct", "<f4")])
 
 
+def index_cache_key(refdir: str, device) -> tuple:
+    """(abspath(refdir), its .abm file's mtime or 0, str(device)): the key
+    under which a search caches ``refdir``'s index staged on ``device``,
+    so that an index rewritten by ``composite -i`` is staged anew."""
+    abm = os.path.join(refdir, BINVEC_DIRNAME + ".abm")
+    return (os.path.abspath(refdir),
+            os.path.getmtime(abm) if os.path.exists(abm) else 0, str(device))
+
+
 def read_abv_file(path: str) -> tuple[np.ndarray, np.ndarray]:
     rec = np.fromfile(path, dtype=_ABV_DT)
     return rec["ref_idx"].copy(), rec["pct"].copy()

@@ -6,7 +6,9 @@ interface (no PyTorch headers, so the build takes seconds).  The library
 lands in ``metakssd_tpu_torch/_build/``, named by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one is loaded as
 is.  Nothing here runs at import time: the CPU-only test environment
-imports every module and has no ``nvcc``.
+imports every module and has no ``nvcc``.  Every wrapper that launches
+a kernel of the library checks its tensors with ``check_1d``, launches
+under ``card_of``, raises with ``raise_on`` and counts in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -69,6 +73,15 @@ _SIGNATURES = {
     # blob, off, n_names, ids, vals, n, scratch, out, out_cap, stream
     "mkssd_abv_format_lines": [_P, _P, _LL, _P, _P, _LL, _P, _P, _LL, _P],
 }
+
+# Launches of each kernel (not of its plain twin): K1, K2, K3 (``member``,
+# every call; ``member_groups``, the calls of its groups launch), K3's index
+# build, the probes' and the abv search's.  Reset with reset_launches();
+# chip_smoke.py, the probes and the cuda tests read them around each leg.
+LAUNCHES = {"sketch_compact": 0, "sketch_full": 0, "member": 0,
+            "member_groups": 0, "member_index": 0, "probe_floor": 0,
+            "probe_winmath": 0, "probe_gather": 0, "probe_search": 0,
+            "abv_gather": 0, "abv_post_walk": 0, "abv_format_lines": 0}
 
 _lib = None
 build_log = ""          # nvcc's stderr (ptxas register/smem report)
@@ -151,3 +164,30 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_1d(name: str, t: torch.Tensor, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous 1-D ``dtype`` tensor on
+    ``device``: what a kernel reads through a bare pointer."""
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or \
+            t.device != device:
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor "
+                         f"on {device}")
+
+
+def raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def card_of(t: torch.Tensor):
+    """``t``'s card as the current device for a launch through ctypes,
+    which launches on the current device whatever stream it is given: a
+    tensor on another card than the current one otherwise faults (an
+    illegal address)."""
+    return torch.cuda.device(t.device)

@@ -18,8 +18,8 @@ y_l2n`` and rounded once.  Unlike ``--dense`` it holds the DB in its own
 sparse layout: the whole public abv DB (382,016 samples over GTDB r214's
 85,205 species) is about 1.2 GB of postings.
 
-What is staged (``StagedPostings``, cached under (abspath(refdir), the
-``.abm`` file's mtime, str(device))):
+What is staged (``StagedPostings``, cached under
+``formats/abv.index_cache_key``):
 
 - ``index``: the ``AbvIndex`` as read (host);
 - ``starts``: int64 [S + 1] on the device, species j's postings are
@@ -28,31 +28,28 @@ What is staged (``StagedPostings``, cached under (abspath(refdir), the
 - ``ids``: int32 [nnz] on the device, each posting's sample id, strictly
   ascending within a species (checked when staged);
 - ``pct``: float32 [nnz] on the device, each posting's percentage;
-- ``names_blob``, ``names_off`` (bytes, int64 [N + 1]): the sample names
-  as the host's text formatter reads them, built once (None where the
-  host library is missing; the NumPy lines then use ``index.names``);
-- ``text``: on a card, the names and the text's buffers there
-  (``abv_text.CardText``), so that each query's text is formatted on the
-  card; None on the CPU, whose text the host writer makes.
+- ``names``: the sample names for the text's writers
+  (``abv_text.StagedNames``; on a card also there, with the text's
+  buffers).
 
 ``postings_search_batch(staged, queries, mode)``, looked up as a module
 attribute once a call, returns (measure float32 [B, N], touch int64
 [B, N]) as NumPy: the float32 sum before the mode's final step (L1's
 complement term included, cosine's division not) and the walk position of
 each sample's first posting, -1 (measure 0) where it shares no species.
-Ranking follows on the host; the text on the card where the index is
-staged there (``write_lines``), else on the host.
+Ranking (``rank``, ties by first touch) and the text follow as the dense
+route's do (``ops/abv_text``): the text on the card where it is staged.
 
 Each call of ``abv_search_postings`` is one ``TIMER`` stage
 ``abv.post.search`` holding ``abv.post.db`` (``abv.post.stage`` on a cache
 miss), ``abv.post.queries``, ``abv.post.batch`` (``abv.post.walk``: the
 queries' upload and the walk; ``abv.post.readback``) and per query
-``abv.post.rank`` and ``abv.post.format``; counters ``abv.post.kernel``
-(launches of the kernel), ``abv.post.postings`` (postings walked: the
-query species' posting counts summed), ``abv.post.lines`` (the text's
-data lines) and, on a card, ``abv.post.format.card`` (lines formatted
-there) and ``abv.post.format.host`` (lines of queries whose text fell
-back to the host writer).
+``abv.post.rank`` and ``abv.post.format``; counters ``abv.post.postings``
+(postings walked: the query species' posting counts summed; the walk's
+launches are ``_build.LAUNCHES["abv_post_walk"]``), ``abv.post.lines``
+(the text's data lines) and, on a card, ``abv.post.format.card`` (lines
+formatted there) and ``abv.post.format.host`` (lines of queries whose
+text fell back to the host writer).
 """
 
 from __future__ import annotations
@@ -67,12 +64,14 @@ import torch
 
 from metakssd_tpu_torch.device import resolve_device
 from metakssd_tpu_torch.formats.abv import (BINVEC_DIRNAME, AbvIndex,
-                                            read_abv_file)
-from metakssd_tpu_torch.io import native as native_io
-from metakssd_tpu_torch.ops.abv_text import CardText
+                                            index_cache_key, read_abv_file)
+from metakssd_tpu_torch.ops import _build
+from metakssd_tpu_torch.ops.abv_text import HEADERS, StagedNames
+# rank's order, under the name kssd_bench's planted fault (a swapped tie)
+# replaces
+from metakssd_tpu_torch.ops.abv_text import rank_order as _order_key
 from metakssd_tpu_torch.utils import TIMER
 
-HEADERS = {0: "CosineXY", 1: "L1norm", 2: "L2norm"}
 BATCH_BYTES = 1 << 30     # outputs of one postings_search_batch call
 MAX_BATCH = 65535         # queries of one launch (the kernel's grid y)
 
@@ -85,9 +84,7 @@ class StagedPostings:
     starts: torch.Tensor
     ids: torch.Tensor
     pct: torch.Tensor
-    names_blob: bytes | None
-    names_off: np.ndarray | None
-    text: CardText | None = None
+    names: StagedNames
 
     @property
     def n_samples(self) -> int:
@@ -116,22 +113,17 @@ def stage_postings(index: AbvIndex, device) -> StagedPostings:
             raise ValueError("abv index: postings not in sample order within "
                              "a species (search it with --device host)")
     return StagedPostings(index, starts, torch.from_numpy(starts).to(device),
-                          ids, pct, *native_io.names_blob(index.names),
-                          CardText.stage(index.names, ids.device)
-                          if ids.device.type == "cuda" else None)
+                          ids, pct, StagedNames.stage(index.names, ids.device))
 
 
 _POSTINGS_CACHE: dict = {}
 
 
 def _postings_db(refdir: str, device) -> StagedPostings:
-    """``refdir``'s index staged on ``device``, cached by (refdir, index
-    mtime, device)."""
+    """``refdir``'s index staged on ``device``, cached by
+    ``index_cache_key``."""
     with TIMER.stage("abv.post.db"):
-        abm = os.path.join(refdir, BINVEC_DIRNAME + ".abm")
-        key = (os.path.abspath(refdir),
-               os.path.getmtime(abm) if os.path.exists(abm) else 0,
-               str(device))
+        key = index_cache_key(refdir, device)
         got = _POSTINGS_CACHE.get(key)
         if got is None:
             with TIMER.stage("abv.post.stage"):
@@ -223,10 +215,7 @@ def postings_walk(staged: StagedPostings, q_off, q_sp, q_val, q_pos,
                            ("q_sp", q_sp, torch.int32),
                            ("q_val", q_val, torch.float32),
                            ("q_pos", q_pos, torch.int64)):
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or \
-                t.device != dev:
-            raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
-                             f"tensor on {dev}")
+        _build.check_1d(name, t, dtype, dev)
     b, n = q_off.numel() - 1, staged.n_samples
     buf, touch, measure = _outputs(b, n, dev)
     if dev.type == "cpu":
@@ -237,17 +226,15 @@ def postings_walk(staged: StagedPostings, q_off, q_sp, q_val, q_pos,
         raise ValueError(f"no abv postings kernel for device {dev}")
     if b == 0 or n == 0:
         return buf, touch.fill_(-1), measure.zero_()
-    from metakssd_tpu_torch.ops import _build
-    from metakssd_tpu_torch.ops.sketch_cuda import _card_of, _raise_on
     lib = _build.library()
-    with _card_of(staged.ids):
+    with _build.card_of(staged.ids):
         err = lib.mkssd_abv_post_walk(
             staged.starts.data_ptr(), staged.ids.data_ptr(),
             staged.pct.data_ptr(), n, q_off.data_ptr(), q_sp.data_ptr(),
             q_val.data_ptr(), q_pos.data_ptr(), b, mode, measure.data_ptr(),
             touch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "mkssd_abv_post_walk")
-    TIMER.count("abv.post.kernel", 1)
+    _build.raise_on(err, "mkssd_abv_post_walk")
+    _build.LAUNCHES["abv_post_walk"] += 1
     return buf, touch, measure
 
 
@@ -280,18 +267,6 @@ def postings_search_batch(staged: StagedPostings, queries: list,
                 host[:2 * bn].view(np.int64).reshape(b, -1))
 
 
-def _order_key(measure: np.ndarray, touch: np.ndarray) -> np.ndarray:
-    """uint64 keys whose ascending order is a stable ascending sort on
-    ``measure`` (float32; NaN last, -0.0 equal to 0.0, as NumPy sorts)
-    of samples taken in ``touch`` order (distinct, below 2^32)."""
-    m = np.where(np.isnan(measure), np.float32(np.nan),
-                 measure + np.float32(0.0))
-    bits = m.view(np.uint32)
-    bits = np.where(bits >= np.uint32(1 << 31), ~bits,
-                    bits | np.uint32(1 << 31))
-    return (bits.astype(np.uint64) << np.uint64(32)) | touch.astype(np.uint64)
-
-
 def rank(measure: np.ndarray, touch: np.ndarray, mode: int,
          qpct: np.ndarray, y_l2n: np.ndarray
          ) -> tuple[np.ndarray, np.ndarray]:
@@ -306,29 +281,11 @@ def rank(measure: np.ndarray, touch: np.ndarray, mode: int,
             else 0.0        # sequential float32, as the reference's loop
         m = (m.astype(np.float64)
              / (math.sqrt(xl2n) * y_l2n[ids])).astype(np.float32)
-    order = np.argsort(_order_key(m, touch[ids]))
+    order = _order_key(m, touch[ids])
     if mode == 0:
         order = order[::-1]
     vals = m[order].astype(np.float64)
     return ids[order], (np.sqrt(vals) if mode == 2 else vals)
-
-
-def write_lines(staged: StagedPostings, out, ids: np.ndarray,
-                vals: np.ndarray) -> None:
-    """Write one query's ranked lines ``name\t%f\n`` (samples ``ids``,
-    printed values ``vals``) to ``out``: formatted on the card where
-    ``staged.text`` is there, unless a value is one the kernel cannot
-    print exactly, and then, as on the CPU, by the host writer."""
-    text = staged.text.text(ids, vals) if staged.text is not None else None
-    if text is not None:
-        TIMER.count("abv.post.format.card", ids.size)
-        out.write(text)
-        return
-    if staged.text is not None:
-        TIMER.count("abv.post.format.host", ids.size)
-    native_io.write_name_float_lines(out, staged.index.names,
-                                     staged.names_blob, staged.names_off,
-                                     ids, vals)
 
 
 def abv_search_postings(refdir: str, queries: list[str], mode: int = 0,
@@ -369,5 +326,8 @@ def abv_search_postings(refdir: str, queries: list[str], mode: int = 0,
                                  qs[it][1], staged.index.y_l2n)
             with TIMER.stage("abv.post.format"):
                 out.write(f"#Sample\t{HEADERS[mode]}\n")
-                write_lines(staged, out, ids, vals)
+                if staged.names.write(out, ids, vals):
+                    TIMER.count("abv.post.format.card", ids.size)
+                elif staged.names.card is not None:
+                    TIMER.count("abv.post.format.host", ids.size)
             TIMER.count("abv.post.lines", ids.size)

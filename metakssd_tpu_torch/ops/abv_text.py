@@ -1,5 +1,10 @@
-"""The ranked text of ``composite -s <mode>`` (``name\\t%f\\n`` a line),
-formatted on the device that holds the search's results.
+"""The ranked text of ``composite -s <mode>`` (``name\\t%f\\n`` a line):
+what both card routes (``ops/dense_abv``, ``ops/abv_postings``) do after
+their device search.  ``StagedNames.stage``, once per staged index, holds
+the names for the host writer and, on a card, there (``CardText``);
+``rank_order`` ranks a query's samples by the tie-break its route passes;
+``StagedNames.write`` writes a query's lines, on the card where it can,
+and says whether it did; ``HEADERS`` names each mode's column.
 
 ``CardText.stage(names, device)`` puts the sample names on the device once
 (a uint8 blob and int64 offsets [N + 1]) with reusable buffers sized for
@@ -11,16 +16,16 @@ one readback of the text's length and flagged count and one of exactly
 the text's bytes, decoded once.  It returns None where a line cannot be
 printed exactly by this route (a value that is not finite or above 9e12
 in magnitude): the caller then writes the whole text with the host
-writer (``io/native.write_name_float_lines``).
+writer.
 
 ``format_lines`` is, on a card, the hand-written kernel
-``mkssd_abv_format_lines`` (``csrc/abv.cu``; its calls counted by
-``LAUNCHES``), and for tensors on the CPU its plain twin
-``format_lines_plain``.  Both print a value as glibc's ``%f`` does, by the
-host writer's arithmetic (``native/fastseq.cpp`` ``fast_f6``): for
-v = m * 2^e, d = round_half_even(m * 5^6 * 2^(e + 6)) exactly, a '-'
-whenever the sign bit is set (-0.0 included), d // 10^6, '.', and the six
-digits of d % 10^6.
+``mkssd_abv_format_lines`` (``csrc/abv.cu``; its calls counted in
+``_build.LAUNCHES["abv_format_lines"]``), and for tensors on the CPU its
+plain twin ``format_lines_plain``.  Both print a value as glibc's ``%f``
+does, by the host writer's arithmetic (``native/fastseq.cpp``
+``fast_f6``): for v = m * 2^e, d = round_half_even(m * 5^6 * 2^(e + 6))
+exactly, a '-' whenever the sign bit is set (-0.0 included), d // 10^6,
+'.', and the six digits of d % 10^6.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ import numpy as np
 import torch
 
 from metakssd_tpu_torch.io import native as native_io
+from metakssd_tpu_torch.ops import _build
 
-LAUNCHES = 0             # calls of format_lines that ran the kernel
+HEADERS = {0: "CosineXY", 1: "L1norm", 2: "L2norm"}
 BLOCK_LINES = 256        # lines a block of the kernel (kFmtThreads)
 LINE_EXTRA = 30          # bytes a line beyond its name: '\t', at most
                          # 21 of value (sign, 13 digits, '.', 6), '\n'
@@ -95,7 +101,6 @@ def format_lines(blob: torch.Tensor, off: torch.Tensor, ids: torch.Tensor,
     vals float64; scratch int64 of at least 2 + ceil(n / BLOCK_LINES).
     ``mkssd_abv_format_lines`` on a card, ``format_lines_plain`` on the
     CPU.  Nothing is synchronised."""
-    global LAUNCHES
     dev = blob.device
     n = ids.numel()
     for name, t, dtype in (("blob", blob, torch.uint8),
@@ -104,10 +109,7 @@ def format_lines(blob: torch.Tensor, off: torch.Tensor, ids: torch.Tensor,
                            ("vals", vals, torch.float64),
                            ("scratch", scratch, torch.int64),
                            ("out", out, torch.uint8)):
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or \
-                t.device != dev:
-            raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
-                             f"tensor on {dev}")
+        _build.check_1d(name, t, dtype, dev)
     if vals.numel() != n or off.numel() < 1 or \
             scratch.numel() < 2 + -(-n // BLOCK_LINES):
         raise ValueError("format_lines: ids and vals differ in length, or "
@@ -117,16 +119,14 @@ def format_lines(blob: torch.Tensor, off: torch.Tensor, ids: torch.Tensor,
         return
     if dev.type != "cuda":
         raise ValueError(f"no text kernel for device {dev}")
-    from metakssd_tpu_torch.ops import _build
-    from metakssd_tpu_torch.ops.sketch_cuda import _card_of, _raise_on
     lib = _build.library()
-    with _card_of(blob):
+    with _build.card_of(blob):
         err = lib.mkssd_abv_format_lines(
             blob.data_ptr(), off.data_ptr(), off.numel() - 1, ids.data_ptr(),
             vals.data_ptr(), n, scratch.data_ptr(), out.data_ptr(),
             out.numel(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "mkssd_abv_format_lines")
-    LAUNCHES += 1
+    _build.raise_on(err, "mkssd_abv_format_lines")
+    _build.LAUNCHES["abv_format_lines"] += 1
 
 
 @dataclasses.dataclass
@@ -193,3 +193,48 @@ class CardText:
                                    f"of {self.out.numel()}")
             self.out_host[:total].copy_(self.out[:total])
             return str(self.out_view[:total], "utf-8")
+
+
+def rank_order(measure: np.ndarray, tiebreak: np.ndarray) -> np.ndarray:
+    """The order of a stable ascending sort on ``measure`` (float32; NaN
+    last, -0.0 equal to 0.0, as NumPy sorts) of samples taken in
+    ascending ``tiebreak`` order (distinct, in [0, 2^32)): one argsort of
+    uint64 keys, the measure's bits made monotonic above the tie-break."""
+    m = np.where(np.isnan(measure), np.float32(np.nan),
+                 measure + np.float32(0.0))
+    bits = m.view(np.uint32)
+    bits = np.where(bits >= np.uint32(1 << 31), ~bits,
+                    bits | np.uint32(1 << 31))
+    return np.argsort((bits.astype(np.uint64) << np.uint64(32))
+                      | tiebreak.astype(np.uint64))
+
+
+@dataclasses.dataclass
+class StagedNames:
+    """The sample names of one staged index, as each writer of its text
+    reads them (see the module docstring)."""
+    names: list[str]
+    blob: bytes | None          # io/native.names_blob; None without the
+    off: np.ndarray | None      # host library (numpy's %f then)
+    card: CardText | None = None
+
+    @classmethod
+    def stage(cls, names: list[str], device) -> "StagedNames":
+        """``names`` for the host writer and, where ``device`` is a card,
+        on it (``CardText.stage``)."""
+        dev = torch.device(device)
+        return cls(names, *native_io.names_blob(names),
+                   CardText.stage(names, dev) if dev.type == "cuda" else None)
+
+    def write(self, out, ids: np.ndarray, vals: np.ndarray) -> bool:
+        """Write the lines ``name\\t%f\\n`` of samples ``ids`` with their
+        printed values ``vals`` (float64) to ``out``; True where the card
+        formatted them, False where the host writer did (on the CPU, or
+        a value the card's route flags)."""
+        text = self.card.text(ids, vals) if self.card is not None else None
+        if text is not None:
+            out.write(text)
+            return True
+        native_io.write_name_float_lines(out, self.names, self.blob,
+                                         self.off, ids, vals)
+        return False

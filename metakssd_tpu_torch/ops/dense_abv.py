@@ -23,18 +23,21 @@ search is held to).
 The text output follows ``_abv_search_dense_impl``: samples sharing no
 dimension with a query are not reported, values may differ from the
 sparse path (``metakssd_tpu.composite.abv_search``) in the last float
-ulps, and ties are broken by sample id.
+ulps, and ties are broken by sample id; it is ranked and written by
+``ops/abv_text``, with the names staged once per cached DB.
 
 Each call of ``abv_search_dense`` is one ``TIMER`` stage ``abv.search``
 holding the stages of its parts (``utils.StageTimer``, which under an
 active ``torch.profiler`` puts them on the clock of the device's
 kernels): ``abv.db``
-(and ``abv.stage`` on a cache miss), ``abv.queries``, ``abv.batch`` (all
-of ``abv_search_batch``: ``abv.measure``, the upload of the queries'
-CSR and the gather; ``abv.readback``), ``abv.names``, and per query
+(and ``abv.stage`` on a cache miss: the DB and its names), ``abv.queries``,
+``abv.batch`` (all of ``abv_search_batch``: ``abv.measure``, the upload of
+the queries' CSR and the gather; ``abv.readback``), and per query
 ``abv.rank`` and ``abv.format``; counters ``abv.queries``, ``abv.lines``
-(the text's data lines), and on the card ``abv.kernel`` (launches of the
-gather) and ``abv.columns`` (query nonzeros it gathered).
+(the text's data lines), and on the card ``abv.columns`` (query nonzeros
+the gather read; its launches are ``_build.LAUNCHES["abv_gather"]``),
+``abv.format.card`` (lines formatted there) and ``abv.format.host``
+(lines of queries whose text fell back to the host writer).
 """
 
 from __future__ import annotations
@@ -49,12 +52,11 @@ import torch
 
 from metakssd_tpu_torch.device import resolve_device
 from metakssd_tpu_torch.formats.abv import (BINVEC_DIRNAME, AbvIndex,
-                                            read_abv_file)
-from metakssd_tpu_torch.io import native as native_io
+                                            index_cache_key, read_abv_file)
+from metakssd_tpu_torch.ops import _build
+from metakssd_tpu_torch.ops.abv_text import HEADERS, StagedNames, rank_order
 from metakssd_tpu_torch.state import dense_abv_from_index
 from metakssd_tpu_torch.utils import TIMER
-
-LAUNCHES = 0                  # launches of mkssd_abv_gather
 
 
 @dataclasses.dataclass
@@ -152,12 +154,7 @@ def _check(db, y_l2n, offsets, cols, vals, mode: int) -> None:
                               ("offsets", offsets, torch.int32, None),
                               ("cols", cols, torch.int32, None),
                               ("vals", vals, torch.float32, cols.numel())):
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
-                             "tensor")
-        if t.device != db.device:
-            raise ValueError(f"{name} lies on {t.device}, the DB on "
-                             f"{db.device}")
+        _build.check_1d(name, t, dtype, db.device)
         if n is not None and t.numel() != n:
             raise ValueError(f"{name} holds {t.numel()} entries, not {n}")
     if offsets.numel() < 1:
@@ -172,14 +169,11 @@ def abv_gather(db: torch.Tensor, y_l2n: torch.Tensor, offsets: torch.Tensor,
     in [0, S), nonzero values), on ``db``'s device: ``mkssd_abv_gather``
     on a card, ``abv_gather_plain`` on the CPU.  mode: 0 cosine, 1 L1,
     2 L2."""
-    global LAUNCHES
     _check(db, y_l2n, offsets, cols, vals, mode)
     if db.device.type == "cpu":
         return abv_gather_plain(db, y_l2n, offsets, cols, vals, mode)
     if db.device.type != "cuda":
         raise ValueError(f"no abv gather kernel for device {db.device}")
-    from metakssd_tpu_torch.ops import _build
-    from metakssd_tpu_torch.ops.sketch_cuda import _card_of, _raise_on
     b = offsets.numel() - 1
     measure = torch.empty((b, db.shape[0]), dtype=torch.float32,
                           device=db.device)
@@ -189,14 +183,13 @@ def abv_gather(db: torch.Tensor, y_l2n: torch.Tensor, offsets: torch.Tensor,
         return measure.zero_(), overlap.zero_()
     lib = _build.library()
     stream = torch.cuda.current_stream(db.device).cuda_stream
-    with _card_of(db):
+    with _build.card_of(db):
         err = lib.mkssd_abv_gather(
             db.data_ptr(), db.shape[0], db.shape[1], offsets.data_ptr(),
             cols.data_ptr(), vals.data_ptr(), b, y_l2n.data_ptr(), mode,
             measure.data_ptr(), overlap.data_ptr(), stream)
-    _raise_on(err, "mkssd_abv_gather")
-    LAUNCHES += 1
-    TIMER.count("abv.kernel", 1)
+    _build.raise_on(err, "mkssd_abv_gather")
+    _build.LAUNCHES["abv_gather"] += 1
     TIMER.count("abv.columns", cols.numel())
     return measure, overlap
 
@@ -230,20 +223,18 @@ _DENSE_CACHE: dict = {}
 
 
 def _dense_db(refdir: str, device):
-    """(AbvIndex, nspecies, DenseAbv) of ``refdir`` on ``device``, cached
-    by (refdir, index mtime, device)."""
+    """(AbvIndex, nspecies, DenseAbv, StagedNames) of ``refdir`` on
+    ``device``, cached by ``index_cache_key``."""
     with TIMER.stage("abv.db"):
-        abm = os.path.join(refdir, "abundance_Vec.abm")
-        key = (os.path.abspath(refdir),
-               os.path.getmtime(abm) if os.path.exists(abm) else 0,
-               str(device))
+        key = index_cache_key(refdir, device)
         got = _DENSE_CACHE.get(key)
         if got is None:
             with TIMER.stage("abv.stage"):
                 idx = AbvIndex.read(refdir)
                 nspecies = int(idx.abmi.size)
                 got = (idx, nspecies,
-                       dense_abv_from_index(idx, nspecies, device))
+                       dense_abv_from_index(idx, nspecies, device),
+                       StagedNames.stage(idx.names, device))
             _DENSE_CACHE[key] = got
         return got
 
@@ -256,8 +247,8 @@ def abv_search_dense(refdir: str, queries: list[str], mode: int = 0,
     out = out or sys.stdout
     with TIMER.stage("abv.search"):
         dev = resolve_device(device)
-        idx, nspecies, dense = _dense_db(refdir, dev)
-        qmat, qnames = [], []
+        _, nspecies, dense, names = _dense_db(refdir, dev)
+        qmat = []
         with TIMER.stage("abv.queries"):
             for qpath in queries:
                 if not qpath.endswith(".abv"):
@@ -269,41 +260,23 @@ def abv_search_dense(refdir: str, queries: list[str], mode: int = 0,
                 row = np.zeros(nspecies, dtype=np.float32)
                 row[qi] = qp
                 qmat.append(row)
-                qnames.append(qpath)
         if not qmat:
             return
-        TIMER.count("abv.queries", len(qnames))
+        TIMER.count("abv.queries", len(qmat))
         measure, overlap = abv_search_batch(dense, np.stack(qmat),
                                             mode=mode)
-        hdr = {0: "CosineXY", 1: "L1norm", 2: "L2norm"}[mode]
-        with TIMER.stage("abv.names"):
-            names_arr = np.asarray(idx.names, dtype=object)
-            names_blob = names_off = None
-            if native_io.available():
-                enc = [n.encode() for n in idx.names]
-                names_off = np.zeros(len(enc) + 1, dtype=np.int64)
-                np.cumsum([len(b) for b in enc], out=names_off[1:])
-                names_blob = b"".join(enc)
-        for b in range(len(qnames)):
+        for b in range(len(qmat)):
             with TIMER.stage("abv.rank"):
                 ids = np.nonzero(overlap[b])[0]
                 vals = measure[b, ids]
-                order = np.argsort(vals, kind="stable")
+                order = rank_order(vals, ids)
                 if mode == 0:
                     order = order[::-1]
             with TIMER.stage("abv.format"):
-                out.write(f"#Sample\t{hdr}\n")
-                buf = None
-                if names_blob is not None:
-                    buf = native_io.format_name_float_lines(
-                        names_blob, names_off, ids[order],
-                        vals[order].astype(np.float64))
-                if buf is not None:
-                    out.write(buf.decode())
-                else:
-                    # the same "%f" lines, formatted in bulk
-                    sv = np.char.mod("%f\n", vals[order].astype(np.float64))
-                    lines = names_arr[ids[order]] + "\t" + \
-                        sv.astype(object)
-                    out.write("".join(lines.tolist()))
+                out.write(f"#Sample\t{HEADERS[mode]}\n")
+                if names.write(out, ids[order],
+                               vals[order].astype(np.float64)):
+                    TIMER.count("abv.format.card", ids.size)
+                elif names.card is not None:
+                    TIMER.count("abv.format.host", ids.size)
             TIMER.count("abv.lines", ids.size)

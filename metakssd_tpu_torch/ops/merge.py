@@ -17,8 +17,8 @@ K3 searches through a per-haystack index (:class:`MemberIndex`, built by
 the lower bounds of every bucket of keys sharing their top bits.  A
 :class:`StaticHaystack` on CUDA builds its index once and every call on it
 reuses it; ``member`` on a bare CUDA tensor builds one for that call.  The index is
-set-up and has its own launch count (``LAUNCHES["member_index"]``), so
-``LAUNCHES["member"]`` counts K3 alone, every call whichever launch
+set-up and has its own launch count (``_build.LAUNCHES["member_index"]``),
+so ``LAUNCHES["member"]`` counts K3 alone, every call whichever launch
 (``LAUNCHES["member_groups"]`` the calls of its groups launch).
 ``member_indexed_plain`` is the indexed formulation in plain torch (bucket
 bounds, then a bounded search), beside ``member_plain``, which searches
@@ -44,8 +44,8 @@ import numpy as np
 import torch
 
 from metakssd_tpu_torch.device import resolve_device
-from metakssd_tpu_torch.ops.sketch_cuda import LAUNCHES, _as_u32_bits, \
-    _card_of, _raise_on
+from metakssd_tpu_torch.ops import _build
+from metakssd_tpu_torch.ops.sketch_cuda import _as_u32_bits
 
 _U32 = 0xFFFFFFFF
 # mkssd_member's launches (csrc/member.cu enum Launch) and its rule: the
@@ -145,14 +145,13 @@ def build_index(hay: torch.Tensor, max_key: int | None = None,
     table = torch.empty(nb + 1 if nb else 0, dtype=torch.int32,
                         device=hay.device)
     if nb:
-        from metakssd_tpu_torch.ops import _build
         lib = _build.library()
-        with _card_of(hay):
+        with _build.card_of(hay):
             err = lib.mkssd_member_index(
                 hay.data_ptr(), hay.numel(), nb, shift, table.data_ptr(),
                 torch.cuda.current_stream(hay.device).cuda_stream)
-        _raise_on(err, "mkssd_member_index")
-        LAUNCHES["member_index"] += 1
+        _build.raise_on(err, "mkssd_member_index")
+        _build.LAUNCHES["member_index"] += 1
     return MemberIndex(table, nb, shift)
 
 
@@ -293,20 +292,19 @@ def member(hay: torch.Tensor, values: torch.Tensor | None,
         return out_m, out_v
     if index is None:
         index = build_index(hay)
-    from metakssd_tpu_torch.ops import _build
     lib = _build.library()
     stream = torch.cuda.current_stream(needles.device).cuda_stream
-    with _card_of(needles):
+    with _build.card_of(needles):
         err = lib.mkssd_member(
             hay.data_ptr(), hay.numel(),
             index.table.data_ptr() if index.nb else None, index.nb,
             index.shift, None if values is None else values.data_ptr(),
             needles.data_ptr(), n, out_m.data_ptr(), out_v.data_ptr(),
             0 if launch is None else K3_LAUNCH_CODES[launch], stream)
-    _raise_on(err, "mkssd_member")
-    LAUNCHES["member"] += 1
+    _build.raise_on(err, "mkssd_member")
+    _build.LAUNCHES["member"] += 1
     if (launch or member_launch(n)) == "groups":
-        LAUNCHES["member_groups"] += 1
+        _build.LAUNCHES["member_groups"] += 1
     return out_m, out_v
 
 

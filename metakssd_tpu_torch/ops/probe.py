@@ -35,9 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metakssd_tpu_torch.ops import merge
-from metakssd_tpu_torch.ops.sketch_cuda import LAUNCHES, _as_u32_bits, \
-    _raise_on
+from metakssd_tpu_torch.ops import _build, merge
+from metakssd_tpu_torch.ops.sketch_cuda import _as_u32_bits
 
 LANES = 128
 PART_ROWS = 128               # rows a CUDA block takes, at least (kPartRows)
@@ -243,7 +242,6 @@ def _cuda(tiles: torch.Tensor, name: str):
             or not tiles.is_contiguous():
         raise ValueError(f"{name}: tiles must be a contiguous "
                          f"[nb, rows, {LANES}] tensor")
-    from metakssd_tpu_torch.ops import _build
     return (_build.library(),
             torch.cuda.current_stream(tiles.device).cuda_stream)
 
@@ -321,11 +319,11 @@ def floor(tiles: torch.Tensor, row0: int, row1: int,
     if tiles.element_size() < 4 and op != "none":
         check_vector_rows(tiles, row0)
     out, partial, tickets = _outputs(tiles, row1 - row0, "floor", stream)
-    _raise_on(lib.mkssd_probe_floor(
+    _build.raise_on(lib.mkssd_probe_floor(
         tiles.data_ptr(), _TILE_TYPES[tiles.dtype], tiles.shape[0],
         tiles.shape[1], row0, row1, OPS[op], out.data_ptr(), _ptr(partial),
         _ptr(tickets), stream), "mkssd_probe_floor")
-    LAUNCHES["probe_floor"] += 1
+    _build.LAUNCHES["probe_floor"] += 1
     return out
 
 
@@ -338,11 +336,11 @@ def winmath(tiles: torch.Tensor, nrows: int, TL: int) -> torch.Tensor:
     if tiles.dtype not in (torch.int32, torch.int8):
         raise ValueError(f"winmath: no kernel for {tiles.dtype} tiles")
     out, partial, tickets = _outputs(tiles, nrows, "winmath", stream)
-    _raise_on(lib.mkssd_probe_winmath(
+    _build.raise_on(lib.mkssd_probe_winmath(
         tiles.data_ptr(), _TILE_TYPES[tiles.dtype], tiles.shape[0],
         tiles.shape[1], nrows, TL, out.data_ptr(), _ptr(partial),
         _ptr(tickets), stream), "mkssd_probe_winmath")
-    LAUNCHES["probe_winmath"] += 1
+    _build.LAUNCHES["probe_winmath"] += 1
     return out
 
 
@@ -359,12 +357,12 @@ def gather(tiles: torch.Tensor, nrows: int, table: torch.Tensor, size: int,
         raise ValueError("gather: int32 tiles and a contiguous int32 or "
                          f"uint16 table of >= {size} entries on one device")
     out, partial, tickets = _outputs(tiles, nrows, "gather", stream)
-    _raise_on(lib.mkssd_probe_gather(
+    _build.raise_on(lib.mkssd_probe_gather(
         tiles.data_ptr(), tiles.shape[0], tiles.shape[1], nrows,
         table.data_ptr(), _TILE_TYPES[table.dtype], size, mult, ng,
         out.data_ptr(), _ptr(partial), _ptr(tickets), stream),
         "mkssd_probe_gather")
-    LAUNCHES["probe_gather"] += 1
+    _build.LAUNCHES["probe_gather"] += 1
     return out
 
 
@@ -423,7 +421,7 @@ def search(tiles: torch.Tensor, nrows: int, k: int, subk: int, drlevel: int,
             raise ValueError("search: lev needs 7 rows of 128, sig "
                              "[words, 128]")
     out, partial, tickets = _outputs(tiles, nrows, "search", stream)
-    _raise_on(lib.mkssd_probe_search(
+    _build.raise_on(lib.mkssd_probe_search(
         tiles.data_ptr(), tiles.shape[0], tiles.shape[1], nrows, k, subk,
         drlevel, None if accept is None else accept.data_ptr(),
         0 if accept is None else accept.numel(),
@@ -434,5 +432,5 @@ def search(tiles: torch.Tensor, nrows: int, k: int, subk: int, drlevel: int,
         None if sig is None else sig.data_ptr(),
         0 if sig is None else sig.shape[0], out.data_ptr(), _ptr(partial),
         _ptr(tickets), stream), "mkssd_probe_search")
-    LAUNCHES["probe_search"] += 1
+    _build.LAUNCHES["probe_search"] += 1
     return out

@@ -1,5 +1,5 @@
-"""The window-sketch kernels K1/K2: wrappers, plain versions, launch
-counters and the chunk loop.
+"""The window-sketch kernels K1/K2: wrappers, plain versions and the chunk
+loop (their launches are counted in ``ops/_build.LAUNCHES``).
 
 K1 ``window_compact`` (``csrc/sketch.cu`` ``mkssd_sketch_compact``)
 replaces ``metakssd_tpu/ops/sketch_pallas.py:_compact_kernel``; K2
@@ -37,18 +37,8 @@ import warnings
 import numpy as np
 import torch
 
-from metakssd_tpu_torch.ops import sketch_filter
+from metakssd_tpu_torch.ops import _build, sketch_filter
 from metakssd_tpu_torch.state import AcceptTables
-
-# Launches of each kernel of csrc/ (not of its plain version): K1, K2, K3
-# (``member``, every call, and ``member_groups``, the calls that took its
-# groups launch) and its index build (``member_index``, all counted by
-# ops/merge.py) and the probe kernels (``probe_*``, counted by
-# ops/probe.py).  Reset with reset_launches(); chip_smoke.py reads them
-# around each leg of the main path.
-LAUNCHES = {"sketch_compact": 0, "sketch_full": 0, "member": 0,
-            "member_groups": 0, "member_index": 0, "probe_floor": 0,
-            "probe_winmath": 0, "probe_gather": 0, "probe_search": 0}
 
 CHUNK_WINDOWS = 1 << 26        # windows per device dispatch (64M)
 DEPTH = 2                      # chunks queued per device before resolving
@@ -59,11 +49,6 @@ DROPPED = 0xFFFFFFFF
 # it, then reused), and ``count``, the count slots of a call.  No chunk
 # allocates one.  chip_smoke.py and the tests hold the loop to this.
 PINNED_ALLOCS = {"upload": 0, "count": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _nwin(codes: torch.Tensor, p) -> int:
@@ -211,19 +196,6 @@ def _check_cuda(codes: torch.Tensor, tables: AcceptTables, p) -> None:
                          f"2^{tables.filter_log2} bits")
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-
-
-def _card_of(t: torch.Tensor):
-    """``t``'s card as the current device for a launch through ctypes,
-    which launches on the current device whatever stream it is given: a
-    tensor on another card than the current one otherwise faults (an
-    illegal address)."""
-    return torch.cuda.device(t.device)
-
-
 def window_compact(codes: torch.Tensor, tables: AcceptTables, p,
                    capacity: int, want_pos: bool = False):
     """K1: kept windows only (see the module docstring)."""
@@ -233,22 +205,21 @@ def window_compact(codes: torch.Tensor, tables: AcceptTables, p,
         raise ValueError(f"no sketch kernel for device {codes.device}")
     nwin = _nwin(codes, p)
     _check_cuda(codes, tables, p)
-    from metakssd_tpu_torch.ops import _build
     lib = _build.library()
     out_dr = torch.empty(capacity, dtype=torch.int32, device=codes.device)
     out_pos = (torch.empty(capacity, dtype=torch.int32, device=codes.device)
                if want_pos else None)
     count = torch.zeros(1, dtype=torch.int64, device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    with _card_of(codes):
+    with _build.card_of(codes):
         err = lib.mkssd_sketch_compact(
             codes.data_ptr(), codes.numel(), nwin, tables.accept.data_ptr(),
             tables.pfilter.data_ptr(), tables.size, tables.filter.data_ptr(),
             tables.filter_log2, p.k, p.subk, p.drlevel,
             out_dr.data_ptr(), out_pos.data_ptr() if want_pos else None,
             count.data_ptr(), capacity, stream)
-    _raise_on(err, "mkssd_sketch_compact")
-    LAUNCHES["sketch_compact"] += 1
+    _build.raise_on(err, "mkssd_sketch_compact")
+    _build.LAUNCHES["sketch_compact"] += 1
     return out_dr, out_pos, count
 
 
@@ -260,19 +231,18 @@ def window_full(codes: torch.Tensor, tables: AcceptTables, p):
         raise ValueError(f"no sketch kernel for device {codes.device}")
     nwin = _nwin(codes, p)
     _check_cuda(codes, tables, p)
-    from metakssd_tpu_torch.ops import _build
     lib = _build.library()
     out_dr = torch.empty(nwin, dtype=torch.int32, device=codes.device)
     out_keep = torch.empty(nwin, dtype=torch.int32, device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    with _card_of(codes):
+    with _build.card_of(codes):
         err = lib.mkssd_sketch_full(
             codes.data_ptr(), codes.numel(), nwin, tables.accept.data_ptr(),
             tables.pfilter.data_ptr(), tables.size, tables.filter.data_ptr(),
             tables.filter_log2, p.k, p.subk, p.drlevel,
             out_dr.data_ptr(), out_keep.data_ptr(), stream)
-    _raise_on(err, "mkssd_sketch_full")
-    LAUNCHES["sketch_full"] += 1
+    _build.raise_on(err, "mkssd_sketch_full")
+    _build.LAUNCHES["sketch_full"] += 1
     return out_dr, out_keep
 
 

@@ -18,7 +18,7 @@ from typing import Callable
 import torch
 
 from metakssd_tpu_torch.device import resolve_device
-from metakssd_tpu_torch.ops import sketch_cuda
+from metakssd_tpu_torch.ops import _build
 from metakssd_tpu_torch.ops.probe import LANES
 
 K = 16                  # dispatches per timed run
@@ -31,7 +31,7 @@ class Variant:
     """One line of a TPU probe file and its counterpart here."""
     name: str                     # the TPU file's label
     replaces: str                 # file:line of the TPU kernel
-    kernel: str                   # key of sketch_cuda.LAUNCHES
+    kernel: str                   # key of _build.LAUNCHES
     tiles: torch.Tensor           # the input (K XOR-varied copies are timed)
     run: Callable                 # input -> result, through the wrapper
     plain: Callable | None        # input -> result, the plain version
@@ -150,14 +150,14 @@ def run_all(title: str, variants: list[Variant], k: int = K,
           flush=True)
     records = []
     for v in variants:
-        before = sketch_cuda.LAUNCHES[v.kernel]
+        before = _build.LAUNCHES[v.kernel]
         ms = time_variant(v, k, reps)
         mwin = v.nwin / ms / 1e3
         print(f"{v.name:34s} {ms:9.4f} ms/dispatch ({mwin:8.0f} Mwin/s)",
               flush=True)
         records.append({"name": v.name, "replaces": v.replaces,
                         "kernel": v.kernel, "ms": ms, "mwin_s": mwin,
-                        "launches": sketch_cuda.LAUNCHES[v.kernel] - before,
+                        "launches": _build.LAUNCHES[v.kernel] - before,
                         "variant": v})
     return records
 

@@ -150,7 +150,7 @@ def check(dense, seed: int) -> float:
 def time_cases(dense, seed: int) -> list[dict]:
     """One record a (mode, nnz), as the module docstring says."""
     import torch
-    from metakssd_tpu_torch.ops import dense_abv
+    from metakssd_tpu_torch.ops import _build, dense_abv
     dev = dense.mat.device
     lines = []
     for nnz in NNZ:
@@ -165,9 +165,9 @@ def time_cases(dense, seed: int) -> list[dict]:
             kernel(0)
             kernel(1)
             torch.cuda.synchronize()
-            before = dense_abv.LAUNCHES
+            before = _build.LAUNCHES["abv_gather"]
             ms = _events_ms(kernel, REPS)
-            launches = dense_abv.LAUNCHES - before
+            launches = _build.LAUNCHES["abv_gather"] - before
             path = []
             for q in qs[:5]:
                 t = time.perf_counter()

@@ -29,8 +29,8 @@ ms a call.  Then one JSON line a (mode, nnz): the kernel's ms (CUDA events
 over REPS launches after two warm-ups, queries taken in turns), its bound
 (the query's postings, 8 bytes each, plus the outputs, 12 bytes a
 sample, over 3.35 TB/s), ``postings_search_batch``'s ms a call on the host
-clock (CSR, upload, launch, readback) and the launches counted by
-``abv.post.kernel``.
+clock (CSR, upload, launch, readback) and the launches counted in
+``_build.LAUNCHES["abv_post_walk"]``.
 
 Last, the text formatter ``mkssd_abv_format_lines`` (``ops/abv_text.py``)
 at the benchmark cell's shape: SAMPLES names of the cell's form and
@@ -91,6 +91,7 @@ def make_index(seed: int, device, samples: int = SAMPLES,
     import torch
     from metakssd_tpu_torch.formats.abv import AbvIndex
     from metakssd_tpu_torch.ops.abv_postings import StagedPostings
+    from metakssd_tpu_torch.ops.abv_text import StagedNames
     rng = np.random.default_rng([seed, 2])
     p = _popularity(seed, species)
     targets = np.clip(np.rint(rng.lognormal(np.log(300), 0.7, samples)), 30,
@@ -116,7 +117,8 @@ def make_index(seed: int, device, samples: int = SAMPLES,
     index = AbvIndex([f"s{i}" for i in range(samples)], np.ones(samples),
                      starts_host[1:].astype(np.int32), ids.cpu().numpy(),
                      pct.cpu().numpy())
-    return StagedPostings(index, starts_host, starts, ids, pct, None, None)
+    return StagedPostings(index, starts_host, starts, ids, pct,
+                          StagedNames(index.names, None, None))
 
 
 def make_queries(nnz: int, seed: int, species: int = SPECIES,
@@ -209,8 +211,7 @@ def _events_ms(fn, n: int) -> float:
 def time_cases(staged, seed: int, plain_ms: dict) -> list[dict]:
     """One record a (mode, nnz), as the module docstring says."""
     import torch
-    from metakssd_tpu_torch.ops import abv_postings
-    from metakssd_tpu_torch.utils import TIMER
+    from metakssd_tpu_torch.ops import _build, abv_postings
     n, species = staged.n_samples, staged.starts.numel() - 1
     lines = []
     for nnz in NNZ:
@@ -225,9 +226,9 @@ def time_cases(staged, seed: int, plain_ms: dict) -> list[dict]:
             kernel(0)
             kernel(1)
             torch.cuda.synchronize()
-            before = TIMER.counters.get("abv.post.kernel", 0)
+            before = _build.LAUNCHES["abv_post_walk"]
             ms = _events_ms(kernel, REPS)
-            launches = int(TIMER.counters.get("abv.post.kernel", 0) - before)
+            launches = _build.LAUNCHES["abv_post_walk"] - before
             path = []
             for q in qs:
                 t = time.perf_counter()
@@ -256,7 +257,7 @@ def format_case(seed: int, device, samples: int = SAMPLES,
     import numpy as np
     import torch
     from metakssd_tpu_torch.io import native as native_io
-    from metakssd_tpu_torch.ops import abv_text
+    from metakssd_tpu_torch.ops import _build, abv_text
     dev = torch.device(device)
     names = [f"SRR{10_000_000 + i}.abv" for i in range(samples)]
     t = time.perf_counter()
@@ -282,10 +283,10 @@ def format_case(seed: int, device, samples: int = SAMPLES,
     n = ids.size
     args = (card.blob, card.off, card.lines[8 * n:12 * n].view(torch.int32),
             card.lines[:8 * n].view(torch.float64), card.scratch, card.out)
-    before = abv_text.LAUNCHES
+    before = _build.LAUNCHES["abv_format_lines"]
     ms = (_events_ms(lambda i: abv_text.format_lines(*args), reps)
           if dev.type == "cuda" else None)
-    launches = abv_text.LAUNCHES - before
+    launches = _build.LAUNCHES["abv_format_lines"] - before
     cpu = [a.cpu() for a in args]
     t = time.perf_counter()
     abv_text.format_lines_plain(*cpu)

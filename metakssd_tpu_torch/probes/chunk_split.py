@@ -97,11 +97,11 @@ def checked_run(codes, p, tables, chunk_windows: int, capacity: int,
     overflows), two pinned upload buffers a card (one where the card got
     one chunk) and one array of count slots, whatever the chunk count."""
     import numpy as np
-    from metakssd_tpu_torch.ops import sketch_cuda
+    from metakssd_tpu_torch.ops import _build, sketch_cuda
     nchunks = -(-(codes.size - p.kmer_len + 1) // chunk_windows)
     devs = sketch_cuda._chunk_devices(devices, tables.accept.device, nchunks)
     on_card = collections.Counter(devs[i % len(devs)] for i in range(nchunks))
-    launches = dict(sketch_cuda.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     pinned = dict(sketch_cuda.PINNED_ALLOCS)
     with record_order() as log:
         dr, pos = sketch_cuda.sketch_windows(
@@ -110,7 +110,7 @@ def checked_run(codes, p, tables, chunk_windows: int, capacity: int,
     check_order(log, nchunks, len(devs))
     what = f"devices={devices}"
     if devs[0].type == "cuda":
-        ran = {k: sketch_cuda.LAUNCHES[k] - launches[k]
+        ran = {k: _build.LAUNCHES[k] - launches[k]
                for k in ("sketch_compact", "sketch_full")}
         if ran != {"sketch_compact": nchunks, "sketch_full": reruns}:
             raise AssertionError(f"{what}: launches {ran} for {nchunks} "

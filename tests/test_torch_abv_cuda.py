@@ -1,5 +1,7 @@
 """The dense abv gather kernel (``csrc/abv.cu``, ``mkssd_abv_gather``) on
-the card against its plain twin and against float64 NumPy.
+the card against its plain twin and against float64 NumPy; the dense
+route's text on the card (through the text kernel the postings route
+shares) against ``--device cpu``, byte for byte.
 
 Every test here carries the ``cuda`` marker and skips where there is no
 CUDA device.  The module imports neither jax nor the JAX package, so on a
@@ -8,6 +10,7 @@ GPU machine:
     python -m pytest -m cuda tests/test_torch_abv_cuda.py
 """
 
+import io
 import os
 import re
 
@@ -15,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from metakssd_tpu_torch.ops import dense_abv
+from metakssd_tpu_torch.formats.abv import AbvIndex, write_abv_file
+from metakssd_tpu_torch.ops import _build, dense_abv
+from metakssd_tpu_torch.utils import TIMER
 
 pytestmark = pytest.mark.cuda
 
@@ -110,8 +115,8 @@ def _gap(got, want) -> float:
 def test_gather_matches_twin_and_float64(cuda, db, case, mode, monkeypatch):
     """The kernel through ``abv_search_batch`` against the twin on the CPU
     and float64: overlap exact, measure within 1e-6; one launch a call,
-    counted by ``LAUNCHES`` and the ``abv.kernel`` counter, and the twin
-    never called for the card's DB."""
+    counted in ``_build.LAUNCHES``, and the twin never called for the
+    card's DB."""
     mat, y_l2n = db
     q = _queries(case, mat)
     on_card = dense_abv.DenseAbv([f"s{i}" for i in range(N_ROWS)],
@@ -124,15 +129,12 @@ def test_gather_matches_twin_and_float64(cuda, db, case, mode, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the card's DB reached the plain twin")
     monkeypatch.setattr(dense_abv, "abv_gather_plain", refuse)
-    before = dense_abv.LAUNCHES
-    kernels = dense_abv.TIMER.counters.get("abv.kernel", 0)
-    columns = dense_abv.TIMER.counters.get("abv.columns", 0)
+    before = _build.LAUNCHES["abv_gather"]
+    columns = TIMER.counters.get("abv.columns", 0)
     m, o = dense_abv.abv_search_batch(on_card, q, mode=mode)
     torch.cuda.synchronize()
-    assert dense_abv.LAUNCHES == before + 1
-    assert dense_abv.TIMER.counters["abv.kernel"] == kernels + 1
-    assert dense_abv.TIMER.counters["abv.columns"] == \
-        columns + np.count_nonzero(q)
+    assert _build.LAUNCHES["abv_gather"] == before + 1
+    assert TIMER.counters["abv.columns"] == columns + np.count_nonzero(q)
     want_m, want_o = _reference_f64(mat, y_l2n, q, mode)
     assert m.shape == o.shape == (q.shape[0], N_ROWS)
     np.testing.assert_array_equal(o, po)
@@ -161,14 +163,55 @@ def test_gather_launch_checks(cuda, db):
     off = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
     cols = torch.tensor([1, 4], dtype=torch.int32, device=cuda)
     vals = torch.tensor([1.0, 2.0], dtype=torch.float32, device=cuda)
-    before = dense_abv.LAUNCHES
+    before = _build.LAUNCHES["abv_gather"]
     with pytest.raises(ValueError):
         dense_abv.abv_gather(dbt, yt, off.cpu(), cols, vals, 2)
     with pytest.raises(ValueError):
         dense_abv.abv_gather(dbt, yt, off, cols.long(), vals, 2)
     with pytest.raises(ValueError):
         dense_abv.abv_gather(dbt, yt, off, cols, vals, 3)
-    assert dense_abv.LAUNCHES == before
+    assert _build.LAUNCHES["abv_gather"] == before
     m, o = dense_abv.abv_gather(dbt, yt, off, cols, vals, 2)
     torch.cuda.synchronize()
-    assert dense_abv.LAUNCHES == before + 1 and m.shape == (1, N_ROWS)
+    assert _build.LAUNCHES["abv_gather"] == before + 1
+    assert m.shape == (1, N_ROWS)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_dense_text_on_the_card_equals_cpu(cuda, db, tmp_path, mode):
+    """``composite -s <mode> --dense`` text on ``cuda`` and ``cpu``, byte
+    for byte, from an index of the DB's rows and five query files
+    (``batch5``: one species, a DB row, an empty vector, 700 species,
+    two tiles); on the card one gather launch, every line formatted
+    there by the text kernel (``abv.format.card`` equal to
+    ``abv.lines``, ``abv.format.host`` 0), one call of it a query that
+    has lines."""
+    mat = db[0]
+    sp, smp = np.nonzero(mat.T)             # species-major, samples ascending
+    AbvIndex([f"S{r:04d}.abv" for r in range(N_ROWS)],
+             np.sqrt((mat.astype(np.float64) ** 2).sum(1)),
+             np.cumsum(np.bincount(sp, minlength=N_SPECIES)).astype(np.int32),
+             smp.astype(np.int32), mat[smp, sp]).write(str(tmp_path))
+    qpaths = []
+    for i, row in enumerate(_queries("batch5", mat)):
+        qpaths.append(str(tmp_path / f"q{i}.abv"))
+        nz = np.flatnonzero(row).astype(np.int32)
+        write_abv_file(qpaths[-1], nz, row[nz])
+    got = {}
+    for dev in ("cpu", "cuda"):
+        TIMER.reset()
+        before = dict(_build.LAUNCHES)
+        out = io.StringIO()
+        dense_abv.abv_search_dense(str(tmp_path), qpaths, mode, out=out,
+                                   device=dev)
+        got[dev] = out.getvalue()
+        launches = {k: _build.LAUNCHES[k] - before[k]
+                    for k in ("abv_gather", "abv_format_lines")}
+    assert got["cuda"] == got["cpu"] and got["cpu"].count("#Sample") == 5
+    blocks = got["cuda"].split("#Sample\t")[1:]
+    assert launches == {"abv_gather": 1, "abv_format_lines": sum(
+        b.count("\n") > 1 for b in blocks)}
+    assert launches["abv_format_lines"] == 4
+    assert TIMER.counters["abv.format.card"] == TIMER.counters["abv.lines"] \
+        > 5
+    assert TIMER.counters.get("abv.format.host", 0) == 0

@@ -31,7 +31,7 @@ from metakssd_tpu_torch import cli, composite
 from metakssd_tpu_torch.formats.abv import (AbvIndex, read_abv_file,
                                             write_abv_file)
 from metakssd_tpu_torch.io import native as native_io
-from metakssd_tpu_torch.ops import abv_postings, abv_text
+from metakssd_tpu_torch.ops import _build, abv_postings, abv_text, dense_abv
 from metakssd_tpu_torch.utils import TIMER
 
 
@@ -228,18 +228,27 @@ def test_crafted_cases(tmp_path, case, mode, capsys):
         assert len({int(i) // 1024 for i in ids}) == 3
 
 
-def test_order_key_is_a_stable_sort():
-    """``_order_key``'s ascending order is a stable ascending sort of the
-    float32 measure over samples in touch order: -0.0 ties with 0.0, NaN
-    sorts last, negative values below positive."""
+@pytest.mark.parametrize("tiebreak", ["touch", "sample_id"])
+def test_order_key_is_a_stable_sort(tiebreak):
+    """``abv_text.rank_order`` (the postings route's ``_order_key``) is a
+    stable ascending sort of the float32 measure over samples in
+    tie-break order: the postings route's first touches, or the dense
+    route's ascending sample ids, where it is ``np.argsort(kind="stable")``
+    itself; -0.0 ties with 0.0, NaN sorts last, negative values below
+    positive."""
+    assert abv_postings._order_key is abv_text.rank_order
     rng = np.random.default_rng(4)
     m = rng.choice(np.array([-3.5, -0.0, 0.0, 1.25, 1.25, np.nan, 7.0,
                              -np.inf, np.inf, 2e-45], np.float32), 500)
-    touch = rng.permutation(10_000)[:500].astype(np.int64)
-    by_touch = np.argsort(touch)
-    want = by_touch[np.argsort(m[by_touch], kind="stable")]
-    got = np.argsort(abv_postings._order_key(m, touch))
+    t = rng.permutation(10_000)[:500].astype(np.int64)
+    if tiebreak == "sample_id":
+        t.sort()
+    by_t = np.argsort(t)
+    want = by_t[np.argsort(m[by_t], kind="stable")]
+    got = abv_text.rank_order(m, t)
     np.testing.assert_array_equal(got, want)
+    if tiebreak == "sample_id":
+        np.testing.assert_array_equal(got, np.argsort(m, kind="stable"))
 
 
 def test_staging_refuses_unordered_postings(seeded_db):
@@ -312,7 +321,9 @@ def test_spans_and_counters(seeded_db, mode, capsys, monkeypatch):
     argv = ["composite", "-r", seeded_db, "-s", str(mode), *qs,
             "--device", "cpu"]
     capsys.readouterr()
+    launches = dict(_build.LAUNCHES)
     assert cli.main(argv) == 0
+    assert _build.LAUNCHES == launches                # no launch on the CPU
     out, err = capsys.readouterr()
     rep = json.loads([ln for ln in err.splitlines()
                       if ln.startswith("{")][-1])
@@ -327,7 +338,6 @@ def test_spans_and_counters(seeded_db, mode, capsys, monkeypatch):
     assert rep["counters"]["abv.post.postings"] == walked
     data = [ln for ln in out.splitlines() if ln and not ln.startswith("#")]
     assert rep["counters"]["abv.post.lines"] == len(data) > len(qs)
-    assert "abv.post.kernel" not in rep["counters"]   # no launch on the CPU
     # the CPU's text is the host writer's, counted neither way
     assert not {"abv.post.format.card", "abv.post.format.host"} & \
         set(rep["counters"])
@@ -411,29 +421,48 @@ def test_probe_format_case_on_the_cpu():
     assert rec["bound_bytes"] > 12 * 2000 + rec["text_bytes"] > 2000 * 20
 
 
+def _route_lines(route: str, refdir: str, mode: int):
+    """(the route's staged names, sample ids, float64 values) of one
+    query's lines, searched on the CPU by ``route``."""
+    cpu = torch.device("cpu")
+    if route == "postings":
+        staged = abv_postings._postings_db(refdir, cpu)
+        q = read_abv_file(os.path.join(refdir, "abundance_Vec",
+                                       staged.index.names[7]))
+        measure, touch = abv_postings.postings_search_batch(staged, [q],
+                                                            mode)
+        ids, vals = abv_postings.rank(measure[0], touch[0], mode, q[1],
+                                      staged.index.y_l2n)
+        return staged.names, ids, vals
+    idx, nspecies, dense, names = dense_abv._dense_db(refdir, cpu)
+    sp, pct = read_abv_file(os.path.join(refdir, "abundance_Vec",
+                                         idx.names[7]))
+    q = np.zeros((1, nspecies), np.float32)
+    q[0, sp] = pct
+    measure, overlap = dense_abv.abv_search_batch(dense, q, mode)
+    ids = np.flatnonzero(overlap[0])
+    return names, ids, measure[0, ids].astype(np.float64)
+
+
+@pytest.mark.parametrize("route", ["postings", "dense"])
 @pytest.mark.parametrize("mode", [0, 1, 2])
-def test_text_writer_native_equals_numpy(seeded_db, mode):
-    """The ranked-text writer that ``composite.abv_search`` and this
-    route share (``io/native.write_name_float_lines``) gives the same
-    bytes over the names blob as through numpy's ``%f`` without it."""
-    from metakssd_tpu_torch.io import native
-    staged = abv_postings._postings_db(seeded_db, torch.device("cpu"))
-    if staged.names_blob is None:
+def test_text_writer_native_equals_numpy(seeded_db, mode, route):
+    """The ranked-text writer both card routes share
+    (``abv_text.StagedNames.write``, on the CPU the host writer
+    ``io/native.write_name_float_lines`` that ``composite.abv_search``
+    also calls) gives the same bytes over the route's staged names blob
+    as through numpy's ``%f`` without it."""
+    names, ids, vals = _route_lines(route, seeded_db, mode)
+    if names.blob is None:
         pytest.skip("needs the native host library")
-    q = read_abv_file(os.path.join(seeded_db, "abundance_Vec",
-                                   staged.index.names[7]))
-    measure, touch = abv_postings.postings_search_batch(staged, [q], mode)
-    ids, vals = abv_postings.rank(measure[0], touch[0], mode, q[1],
-                                  staged.index.y_l2n)
     vals = np.concatenate([vals, [0.0, 1e-7, 5e-7, 123456.7890125,
                                   99.9999995]])
     ids = np.concatenate([ids, ids[:5]])
     got = {}
-    for blob, off in ((staged.names_blob, staged.names_off), (None, None)):
+    for staged in (names, abv_text.StagedNames(names.names, None, None)):
         out = io.StringIO()
-        native.write_name_float_lines(out, staged.index.names, blob, off,
-                                      ids, vals)
-        got[blob is None] = out.getvalue()
+        assert staged.write(out, ids, vals) is False
+        got[staged.blob is None] = out.getvalue()
     assert got[True] == got[False] and got[True].count("\n") == ids.size
 
 
@@ -493,61 +522,80 @@ def test_twin_flags_what_it_cannot_print():
 
 @pytest.mark.parametrize("flag", [None, np.inf, np.nan, 1e15,
                                   text_cases.NEXT_ABOVE])
-def test_flagged_line_sends_query_to_host_writer(seeded_db, flag):
-    """``write_lines`` with the card's text buffers (here on the CPU, so
-    through the twin): a query with no flagged value is formatted there
-    and counted in ``abv.post.format.card``; one flagged value sends the
-    whole query to the host writer, counted in ``abv.post.format.host``.
-    The text is the host writer's either way."""
+def test_flagged_line_sends_query_to_host_writer(seeded_db, flag,
+                                                 monkeypatch):
+    """The postings route with the card's text buffers (here on the CPU,
+    so through the twin): a query with no flagged value is formatted
+    there (``StagedNames.write`` returns True) and counted in
+    ``abv.post.format.card``; one flagged value sends the whole query to
+    the host writer (False), counted in ``abv.post.format.host``.  The
+    text is the host writer's either way."""
     staged = abv_postings.stage_postings(AbvIndex.read(seeded_db), "cpu")
-    assert staged.text is None
-    staged.text = abv_text.CardText.stage(staged.index.names, "cpu")
-    q = read_abv_file(os.path.join(seeded_db, "abundance_Vec",
-                                   staged.index.names[7]))
+    assert staged.names.card is None
+    staged.names.card = abv_text.CardText.stage(staged.index.names, "cpu")
+    qpath = os.path.join(seeded_db, "abundance_Vec", staged.index.names[7])
+    q = read_abv_file(qpath)
+    rank = abv_postings.rank
+
+    def flagged(*args):
+        ids, vals = rank(*args)
+        if flag is not None:
+            vals[ids.size // 2] = flag
+        return ids, vals
+    monkeypatch.setattr(abv_postings, "rank", flagged)
     measure, touch = abv_postings.postings_search_batch(staged, [q], 2)
-    ids, vals = abv_postings.rank(measure[0], touch[0], 2, q[1],
-                                  staged.index.y_l2n)
-    if flag is not None:
-        vals[ids.size // 2] = flag
+    ids, vals = flagged(measure[0], touch[0], 2, q[1], staged.index.y_l2n)
     want = io.StringIO()
     native_io.write_name_float_lines(want, staged.index.names,
-                                     staged.names_blob, staged.names_off,
+                                     staged.names.blob, staged.names.off,
                                      ids, vals)
-    before = {k: TIMER.counters.get(k, 0) for k in
-              ("abv.post.format.card", "abv.post.format.host")}
-    launches = abv_text.LAUNCHES
+    launches = _build.LAUNCHES["abv_format_lines"]
     out = io.StringIO()
-    abv_postings.write_lines(staged, out, ids, vals)
+    assert staged.names.write(out, ids, vals) is (flag is None)
     assert out.getvalue() == want.getvalue() and ids.size > 100
-    got = {k: TIMER.counters.get(k, 0) - v for k, v in before.items()}
-    assert got == ({"abv.post.format.card": ids.size,
-                    "abv.post.format.host": 0} if flag is None else
-                   {"abv.post.format.card": 0,
-                    "abv.post.format.host": ids.size})
-    assert abv_text.LAUNCHES == launches          # no kernel on the CPU
+    monkeypatch.setattr(abv_postings, "_postings_db", lambda *a: staged)
+    TIMER.reset()
+    out = io.StringIO()
+    abv_postings.abv_search_postings(seeded_db, [qpath], 2, out=out,
+                                     device="cpu")
+    assert out.getvalue() == "#Sample\tL2norm\n" + want.getvalue()
+    assert {k: TIMER.counters.get(k, 0) for k in
+            ("abv.post.format.card", "abv.post.format.host")} == \
+        ({"abv.post.format.card": ids.size, "abv.post.format.host": 0}
+         if flag is None else
+         {"abv.post.format.card": 0, "abv.post.format.host": ids.size})
+    assert _build.LAUNCHES["abv_format_lines"] == launches  # none on a CPU
 
 
+@pytest.mark.parametrize("route", ["postings", "dense"])
 @pytest.mark.parametrize("mode", [0, 1, 2])
-def test_search_text_through_the_twin(seeded_db, mode, capsys):
-    """``abv_search_postings`` with the card's text buffers on the staged
-    index (on the CPU, through the twin) prints the host route's text,
-    every line counted in ``abv.post.format.card``."""
+def test_search_text_through_the_twin(seeded_db, mode, route, capsys):
+    """Either card route's search with the card's text buffers on its
+    staged names (on the CPU, through the twin) prints the text it prints
+    without them (the postings route: the host route's), every line
+    counted in ``<route>.format.card``."""
     qs = _queries(seeded_db)
-    want = _cli(["composite", "-r", seeded_db, "-s", str(mode), *qs],
-                "host", capsys)
-    staged = abv_postings._postings_db(seeded_db, torch.device("cpu"))
-    staged.text = abv_text.CardText.stage(staged.index.names, "cpu")
+    argv = ["composite", "-r", seeded_db, "-s", str(mode), *qs]
+    cpu = torch.device("cpu")
+    if route == "postings":
+        want = _cli(argv, "host", capsys)
+        names = abv_postings._postings_db(seeded_db, cpu).names
+        search, prefix = abv_postings.abv_search_postings, "abv.post"
+    else:
+        want = _cli([*argv, "--dense"], "cpu", capsys)
+        names = dense_abv._dense_db(seeded_db, cpu)[3]
+        search, prefix = dense_abv.abv_search_dense, "abv"
+    names.card = abv_text.CardText.stage(names.names, "cpu")
     try:
         TIMER.reset()
         out = io.StringIO()
-        abv_postings.abv_search_postings(seeded_db, qs, mode, out=out,
-                                         device="cpu")
+        search(seeded_db, qs, mode, out=out, device="cpu")
     finally:
-        staged.text = None
+        names.card = None
     assert out.getvalue() == want
-    assert TIMER.counters["abv.post.format.card"] == \
-        TIMER.counters["abv.post.lines"] > len(qs)
-    assert "abv.post.format.host" not in TIMER.counters
+    assert TIMER.counters[f"{prefix}.format.card"] == \
+        TIMER.counters[f"{prefix}.lines"] > len(qs)
+    assert f"{prefix}.format.host" not in TIMER.counters
 
 
 def test_card_text_shared_by_threads():

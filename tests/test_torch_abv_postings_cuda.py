@@ -20,7 +20,7 @@ import torch
 import text_cases
 from metakssd_tpu_torch.formats.abv import AbvIndex, write_abv_file
 from metakssd_tpu_torch.io import native as native_io
-from metakssd_tpu_torch.ops import abv_postings, abv_text
+from metakssd_tpu_torch.ops import _build, abv_postings, abv_text
 from metakssd_tpu_torch.utils import TIMER
 
 pytestmark = pytest.mark.cuda
@@ -111,8 +111,8 @@ CASES = ["empty", "popular", "chunks", "all", "batch5", "self"]
 @pytest.mark.parametrize("case", CASES)
 def test_kernel_equals_twin_bits(cuda, index, case, mode, monkeypatch):
     """``postings_search_batch`` on the card against the CPU twin: measure
-    bits and first touches equal; one launch a call, counted by
-    ``abv.post.kernel``; the twin never called for the card's index."""
+    bits and first touches equal; one launch a call, counted in
+    ``_build.LAUNCHES``; the twin never called for the card's index."""
     queries = _queries(case, index)
     on_cpu = abv_postings.stage_postings(index, "cpu")
     on_card = abv_postings.stage_postings(index, cuda)
@@ -121,10 +121,10 @@ def test_kernel_equals_twin_bits(cuda, index, case, mode, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the card's index reached the plain twin")
     monkeypatch.setattr(abv_postings, "postings_walk_plain", refuse)
-    before = TIMER.counters.get("abv.post.kernel", 0)
+    before = _build.LAUNCHES["abv_post_walk"]
     m, t = abv_postings.postings_search_batch(on_card, queries, mode)
     torch.cuda.synchronize()
-    assert TIMER.counters["abv.post.kernel"] == before + 1
+    assert _build.LAUNCHES["abv_post_walk"] == before + 1
     assert m.shape == t.shape == (len(queries), N_SAMPLES)
     np.testing.assert_array_equal(t, pt)
     np.testing.assert_array_equal(m.view(np.int32), pm.view(np.int32))
@@ -151,12 +151,12 @@ def test_text_on_the_card_equals_cpu(cuda, index, tmp_path, mode):
     got = {}
     for dev in ("cpu", "cuda"):
         TIMER.reset()
-        launches = abv_text.LAUNCHES
+        launches = _build.LAUNCHES["abv_format_lines"]
         out = io.StringIO()
         abv_postings.abv_search_postings(str(tmp_path), qpaths, mode,
                                          out=out, device=dev)
         got[dev] = out.getvalue()
-        launches = abv_text.LAUNCHES - launches
+        launches = _build.LAUNCHES["abv_format_lines"] - launches
     assert got["cuda"] == got["cpu"] and got["cpu"].count("#Sample") == 5
     assert os.path.exists(str(tmp_path / "abundance_Vec.abm"))
     blocks = got["cuda"].split("#Sample\t")[1:]
@@ -174,17 +174,17 @@ def test_launch_checks(cuda, index):
     sp = torch.tensor([1, 4], dtype=torch.int32, device=cuda)
     val = torch.tensor([1.0, 2.0], dtype=torch.float32, device=cuda)
     pos = torch.tensor([0, 10], dtype=torch.int64, device=cuda)
-    before = TIMER.counters.get("abv.post.kernel", 0)
+    before = _build.LAUNCHES["abv_post_walk"]
     with pytest.raises(ValueError):
         abv_postings.postings_walk(staged, off.cpu(), sp, val, pos, 2)
     with pytest.raises(ValueError):
         abv_postings.postings_walk(staged, off, sp.long(), val, pos, 2)
     with pytest.raises(ValueError):
         abv_postings.postings_walk(staged, off, sp, val, pos, 3)
-    assert TIMER.counters.get("abv.post.kernel", 0) == before
+    assert _build.LAUNCHES["abv_post_walk"] == before
     _, touch, _ = abv_postings.postings_walk(staged, off, sp, val, pos, 2)
     torch.cuda.synchronize()
-    assert TIMER.counters["abv.post.kernel"] == before + 1
+    assert _build.LAUNCHES["abv_post_walk"] == before + 1
     assert touch.shape == (1, N_SAMPLES)
 
 
@@ -212,9 +212,9 @@ def test_text_kernel_at_the_cell_shape(cuda):
     ids = rng.permutation(CELL_SAMPLES)[:CELL_LINES]
     vals = text_cases.mode_values(2, CELL_LINES, rng)
     card = abv_text.CardText.stage(names, cuda)
-    launches = abv_text.LAUNCHES
+    launches = _build.LAUNCHES["abv_format_lines"]
     got = card.text(ids, vals)
-    assert abv_text.LAUNCHES == launches + 1
+    assert _build.LAUNCHES["abv_format_lines"] == launches + 1
     want = io.StringIO()
     native_io.write_name_float_lines(want, names, *native_io.names_blob(names),
                                      ids, vals)

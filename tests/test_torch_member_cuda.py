@@ -18,7 +18,7 @@ import torch
 from metakssd_tpu_torch import dist, pipeline
 from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.formats.shuf import make_shuf
-from metakssd_tpu_torch.ops import merge, probe, sketch_cuda
+from metakssd_tpu_torch.ops import _build, merge, probe
 from metakssd_tpu_torch.params import SketchParams
 
 pytestmark = pytest.mark.cuda
@@ -96,13 +96,13 @@ def test_member_matches_plain(cuda, name, identity):
     h = merge.u32_tensor(hay).to(cuda)
     v = None if identity else merge.u32_tensor(values).to(cuda)
     nd = merge.u32_tensor(needles).to(cuda)
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     m, val = merge.member(h, v, nd)
     torch.cuda.synchronize()
     # one K3 launch per call with needles; the index it builds for a bare
     # tensor is counted apart
-    assert sketch_cuda.LAUNCHES["member"] == (1 if needles.size else 0)
-    assert sketch_cuda.LAUNCHES["member_index"] == \
+    assert _build.LAUNCHES["member"] == (1 if needles.size else 0)
+    assert _build.LAUNCHES["member_index"] == \
         (1 if needles.size and hay.size >= 16 else 0)
     pm, pv = merge.member_plain(h, v, nd)
     assert torch.equal(m, pm) and torch.equal(val, pv)
@@ -143,12 +143,12 @@ def test_search_cuda_matches_cpu(cuda, tmp_path):
     assert CoStat.read(qry).ctx_ct.min() > 0
     outs = {}
     for dev in ("cpu", "cuda"):
-        sketch_cuda.reset_launches()
+        _build.reset_launches()
         outs[dev] = str(tmp_path / f"out_{dev}")
         dist.run_dist_search(ref, qry, outs[dev], opts, device=dev)
         want = comps if dev == "cuda" else 0
-        assert sketch_cuda.LAUNCHES["member"] == want
-        assert sketch_cuda.LAUNCHES["member_index"] == want
+        assert _build.LAUNCHES["member"] == want
+        assert _build.LAUNCHES["member_index"] == want
     for f in ("distance.out", "sharedk_ct.dat"):
         with open(os.path.join(outs["cpu"], f), "rb") as a, \
                 open(os.path.join(outs["cuda"], f), "rb") as b:
@@ -197,18 +197,18 @@ def test_index_kernel_matches_plain(cuda, name, buckets):
     h = merge.u32_tensor(hay).to(cuda)
     if buckets == "densest":
         buckets = probe.exact_buckets(hay.size)
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     if buckets is not None and buckets + 1 > hay.size:
         with pytest.raises(ValueError, match="buckets"):
             merge.build_index(h, buckets=buckets)
         with pytest.raises(ValueError, match="buckets"):
             merge.build_index_plain(h, buckets)
-        assert sketch_cuda.LAUNCHES["member_index"] == 0
+        assert _build.LAUNCHES["member_index"] == 0
         return
     ix = merge.build_index(h, buckets=buckets)
     torch.cuda.synchronize()
-    assert sketch_cuda.LAUNCHES["member_index"] == (1 if ix.nb else 0)
-    assert sketch_cuda.LAUNCHES["member"] == 0
+    assert _build.LAUNCHES["member_index"] == (1 if ix.nb else 0)
+    assert _build.LAUNCHES["member"] == 0
     plain = merge.build_index_plain(h, buckets)
     assert (ix.nb, ix.shift) == (plain.nb, plain.shift)
     assert torch.equal(ix.table, plain.table)
@@ -263,9 +263,9 @@ def test_member_shapes_reuse_one_index(cuda, name, identity):
     to member_plain and numpy on every call, and the index built once
     for all of them."""
     hay, values, needles = _shape(name)
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     sh = merge.StaticHaystack(hay, None if identity else values, cuda)
-    assert sketch_cuda.LAUNCHES["member_index"] == 1
+    assert _build.LAUNCHES["member_index"] == 1
     if name == "skewed":
         sizes = np.diff(sh.index.table.cpu().numpy().view(np.uint32)
                         .astype(np.int64))
@@ -282,8 +282,8 @@ def test_member_shapes_reuse_one_index(cuda, name, identity):
                                       em[part])
         np.testing.assert_array_equal(val.cpu().numpy().view(np.uint32),
                                       ev[part])
-    assert sketch_cuda.LAUNCHES["member"] == len(halves) + 1
-    assert sketch_cuda.LAUNCHES["member_index"] == 1
+    assert _build.LAUNCHES["member"] == len(halves) + 1
+    assert _build.LAUNCHES["member_index"] == 1
     assert em.any() and not em.all()
 
 
@@ -310,10 +310,10 @@ def test_shard_match_cuda_matches_cpu(cuda, monkeypatch, max_needles):
     ab = rng.integers(1, 1000, q.size).astype(np.uint16)
     got = {}
     for dev in ("cpu", "cuda"):
-        sketch_cuda.reset_launches()
+        _build.reset_launches()
         ix = pmesh.ShardedMatchIndex(rk, starts, gid, dev)
         got[dev] = ix.match(q, ab)
-        launches = dict(sketch_cuda.LAUNCHES)
+        launches = dict(_build.LAUNCHES)
     calls = -(-q.size // (max_needles or q.size))
     assert launches["member"] == calls and launches["member_index"] == 1
     for a, b in zip(got["cuda"], got["cpu"]):
@@ -357,14 +357,14 @@ def test_small_counts_both_launches(cuda, identity, order, launch):
         if order == "shuffled":
             x = rng.permutation(x)
         nd = merge.u32_tensor(x).to(cuda)
-        sketch_cuda.reset_launches()
+        _build.reset_launches()
         m, val = merge.member(sh.hay, sh.values, nd, sh.index,
                               None if launch == "rule" else launch)
         pm, pv = merge.member_plain(sh.hay, sh.values, nd)
         torch.cuda.synchronize()
-        assert sketch_cuda.LAUNCHES["member"] == 1, n
+        assert _build.LAUNCHES["member"] == 1, n
         took = merge.member_launch(n) if launch == "rule" else launch
-        assert sketch_cuda.LAUNCHES["member_groups"] == \
+        assert _build.LAUNCHES["member_groups"] == \
             (took == "groups"), (n, launch)
         assert torch.equal(m, pm) and torch.equal(val, pv), (n, launch)
         em, ev = _numpy_membership(hay, None if identity else values, x)
@@ -376,7 +376,6 @@ def test_small_counts_both_launches(cuda, identity, order, launch):
 def test_launch_rule_matches_kernel(cuda):
     """merge.member_launch is mkssd_member_launch, needle for needle,
     around the threshold and at the shapes PERF.md times."""
-    from metakssd_tpu_torch.ops import _build
     lib = _build.library()
     t = merge.GROUPS_MAX_NEEDLES
     for n in (1, 5636, t - 1, t, t + 1, 128 * 4096, 1 << 20, 1_000_033,

@@ -28,7 +28,7 @@ import torch
 from metakssd_tpu_torch.formats.codir import write_codir
 from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.formats.shuf import make_shuf
-from metakssd_tpu_torch.ops import sketch, sketch_cuda
+from metakssd_tpu_torch.ops import _build, sketch
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.parallel import mesh
 from ranks import ROOT, free_port, run_ranks
@@ -61,9 +61,9 @@ def test_sharded_sketch_cuda_matches_cpu(cuda, n, cfg):
     codes[rng.integers(0, codes.size, 1000)] = 255
     codes[700_000:760_000] = 0
     kw = {"chunk_windows": 1 << 18, "capacity": 16}
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     got = mesh.sharded_sketch(codes, shuf, mesh.make_mesh(n, 1, cuda), **kw)
-    launches = dict(sketch_cuda.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     want = sketch.sketch_codes(codes, shuf, "cpu")
     np.testing.assert_array_equal(got, want)
     assert launches["sketch_compact"] >= n
@@ -85,10 +85,10 @@ def test_sharded_match_index_cuda_matches_cpu(cuda, n):
                                   _u32(rng, 0, 1 << 32, 6000),
                                   np.array([ALL_ONES], np.uint32)]))
     ab = rng.integers(1, 1000, q.size).astype(np.uint16)
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     ix = mesh.ShardedMatchIndex(rk, starts, gid, mesh.make_mesh(1, n, cuda))
     got = ix.match(q, ab)
-    launches = dict(sketch_cuda.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     want = mesh.ShardedMatchIndex(rk, starts, gid, "cpu").match(q, ab)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
@@ -119,12 +119,12 @@ def test_sharded_shared_counts_cuda_matches_cpu(cuda, tmp_path):
                                       str(tmp_path / "qry"), "cpu")
     assert want.max() > 0
     for layout in ((1, 4), (2, 2)):
-        sketch_cuda.reset_launches()
+        _build.reset_launches()
         got = mesh.sharded_shared_counts(str(tmp_path / "ref"),
                                          str(tmp_path / "qry"),
                                          mesh.make_mesh(*layout, cuda))
         np.testing.assert_array_equal(got, want)
-        assert sketch_cuda.LAUNCHES["member"] > 0
+        assert _build.LAUNCHES["member"] > 0
 
 
 def test_device_union_cuda_over_shards(cuda):

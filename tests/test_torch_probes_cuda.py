@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from metakssd_tpu_torch.formats.shuf import make_shuf
-from metakssd_tpu_torch.ops import merge, probe, sketch_cuda
+from metakssd_tpu_torch.ops import _build, merge, probe
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.probes import (probe_floor_chunk, probe_floor_noread,
                                        probe_kernel_cost, probe_r4)
@@ -47,9 +47,9 @@ def test_variants_match_plain(cuda, mod):
         if v.plain is None:
             continue
         for t in (v.tiles, _noisy(v.tiles, 1)):
-            before = sketch_cuda.LAUNCHES[v.kernel]
+            before = _build.LAUNCHES[v.kernel]
             got = v.run(t)
-            assert sketch_cuda.LAUNCHES[v.kernel] == before + 1, v.name
+            assert _build.LAUNCHES[v.kernel] == before + 1, v.name
             torch.cuda.synchronize()
             assert torch.equal(got, v.plain(t)), v.name
 
@@ -84,10 +84,10 @@ def test_floor_row_ranges(cuda, monkeypatch, dtype, op, reduce):
         off = (-big.data_ptr() % 16) // big.element_size() + 1
         bad = big[off:off + t.numel()].view(t.shape)
         bad.copy_(t)
-        before = sketch_cuda.LAUNCHES["probe_floor"]
+        before = _build.LAUNCHES["probe_floor"]
         with pytest.raises(ValueError, match="16-byte"):
             probe.floor(bad, 0, 300, op)
-        assert sketch_cuda.LAUNCHES["probe_floor"] == before
+        assert _build.LAUNCHES["probe_floor"] == before
 
 
 @pytest.mark.parametrize("TL", [1, 10, 22, 31, 32])
@@ -183,13 +183,13 @@ def test_search_configs(cuda, cfg, form):
     want = probe.search_plain(tiles, 250, *cfg,
                               **{k: v for k, v in kw.items()
                                  if k != "index"})
-    before = dict(sketch_cuda.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     got = probe.search(tiles, 250, *cfg, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want), form
-    assert sketch_cuda.LAUNCHES["probe_search"] == \
+    assert _build.LAUNCHES["probe_search"] == \
         before["probe_search"] + 1
-    built = sketch_cuda.LAUNCHES["member_index"] - before["member_index"]
+    built = _build.LAUNCHES["member_index"] - before["member_index"]
     assert built == (table == "exact" and not density), form
     if table in ("skewed", "few", "low"):
         assert (want != 0).any(), "no window hit the table"
@@ -215,14 +215,14 @@ def test_floor_is_one_launch(cuda, nb, rows):
     want = {op: probe.floor_plain(t, 0, rows, op) for op in ("sum", "xor")}
     junk = torch.full((nb, 1, 128), 12345, dtype=torch.int32, device=cuda)
     del junk                     # the allocator hands this block out next
-    before = sketch_cuda.LAUNCHES["probe_floor"]
+    before = _build.LAUNCHES["probe_floor"]
     for i in range(20):
         op = ("sum", "xor")[i % 2]
         assert torch.equal(probe.floor(t, 0, rows, op), want[op]), i
         if i == 10:
             assert torch.equal(probe.winmath(t, rows, 22),
                                probe.winmath_plain(t, rows, 22))
-    assert sketch_cuda.LAUNCHES["probe_floor"] == before + 20
+    assert _build.LAUNCHES["probe_floor"] == before + 20
 
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):

@@ -20,7 +20,7 @@ from metakssd_tpu_torch.formats.abv import (AbvIndex, read_abv_file,
                                             write_abv_file)
 from metakssd_tpu_torch.formats.costat import CoStat
 from metakssd_tpu_torch.formats.shuf import make_shuf, write_shuf
-from metakssd_tpu_torch.ops import dense_abv, sketch_cuda
+from metakssd_tpu_torch.ops import _build, dense_abv
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.parallel import mesh
 from metakssd_tpu_torch.state import dense_abv_from_index
@@ -117,7 +117,7 @@ def test_set_verbs_cuda_match_cpu(sketch_dir, monkeypatch):
         (tmp / dev).mkdir()
         monkeypatch.chdir(tmp / dev)
         d = {k: k for k in ("pan", "uq", "mk", "u", "s", "c")}
-        sketch_cuda.reset_launches()
+        _build.reset_launches()
         for argv in (["-g", taxf, "-o", d["pan"], co],
                      ["-q", "-o", d["uq"], d["pan"]],
                      ["-i", d["uq"], "-o", d["mk"], d["pan"]],
@@ -125,7 +125,7 @@ def test_set_verbs_cuda_match_cpu(sketch_dir, monkeypatch):
                      ["-s", d["uq"], "-o", d["s"], co],
                      ["-c", "-o", d["c"], d["u"], d["uq"]]):
             assert cli.main(["set", *argv, "--device", dev]) == 0, argv
-        launches = sketch_cuda.LAUNCHES["member"]
+        launches = _build.LAUNCHES["member"]
         assert launches == (32 if dev == "cuda" else 0), launches
         out[dev] = {k: str(tmp / dev / v) for k, v in d.items()}
     for k in out["cpu"]:

@@ -16,7 +16,8 @@ import torch
 
 from metakssd_tpu_torch import pipeline
 from metakssd_tpu_torch.io import seqio
-from metakssd_tpu_torch.ops import golden, sketch, sketch_cuda, sketch_filter
+from metakssd_tpu_torch.ops import (_build, golden, sketch, sketch_cuda,
+                                    sketch_filter)
 from metakssd_tpu_torch.params import SketchParams
 from metakssd_tpu_torch.state import accept_tables
 
@@ -70,11 +71,11 @@ def test_chunk_loop_matches_golden(cuda, cfg):
     shuf = zero_accepted(p, seed=3)
     codes = random_codes(seed=4, n=200_000, n_invalid=200)
     codes[70_000:71_000] = 0
-    sketch_cuda.reset_launches()
+    _build.reset_launches()
     dr, pos = sketch.sketch_codes_with_positions(
         codes, shuf, cuda, chunk_windows=30_011, capacity=512)
-    assert sketch_cuda.LAUNCHES["sketch_compact"] == 7
-    assert sketch_cuda.LAUNCHES["sketch_full"] >= 1
+    assert _build.LAUNCHES["sketch_compact"] == 7
+    assert _build.LAUNCHES["sketch_full"] >= 1
     assert pos.dtype == np.int64
     gdr, gpos = golden.window_drtuples(codes, shuf, return_positions=True)
     assert_pairs_equal(pairs(dr, pos), pairs(gdr, gpos))
@@ -244,11 +245,11 @@ def test_byread_positions_match_plain(cuda, tmp_path, chunk, capacity):
         dr, pos = sketch.sketch_codes_with_positions(
             codes, shuf, dev, tabs, chunk_windows=chunk, capacity=capacity)
         got[dev] = pairs(dr, pos)
-        sketch_cuda.reset_launches()
+        _build.reset_launches()
         pipeline.sketch_byread(fq, shuf, str(tmp_path / dev), device=dev,
                                chunk_windows=chunk, capacity=capacity)
         if dev == "cuda":
-            launches = dict(sketch_cuda.LAUNCHES)
+            launches = dict(_build.LAUNCHES)
     assert_pairs_equal(got["cuda"], got["cpu"])
     assert launches["sketch_compact"] >= 1
     assert (launches["sketch_full"] > 0) == (capacity is not None)
@@ -267,11 +268,11 @@ def test_kernel_chain_on_the_card(cuda):
     np.testing.assert_array_equal(
         kernel_bench.chain_sums(nwin=nwin, k_reps=k_reps, device=cuda),
         kernel_bench.chain_sums(nwin=nwin, k_reps=k_reps, device="cpu"))
-    before = sketch_cuda.LAUNCHES["sketch_compact"]
+    before = _build.LAUNCHES["sketch_compact"]
     rate = kernel_bench.kernel_chain_mwin(nwin=nwin, k_reps=k_reps, reps=2,
                                           device=cuda)
     assert rate > 0
-    assert sketch_cuda.LAUNCHES["sketch_compact"] == before + 3 * k_reps
+    assert _build.LAUNCHES["sketch_compact"] == before + 3 * k_reps
 
 
 @pytest.fixture(scope="module")

@@ -29,10 +29,9 @@ from metakssd_tpu_torch.utils import TIMER
 PARENT = {"abv.db": "abv.search", "abv.stage": "abv.db",
           "abv.queries": "abv.search", "abv.batch": "abv.search",
           "abv.measure": "abv.batch", "abv.readback": "abv.batch",
-          "abv.names": "abv.search", "abv.rank": "abv.search",
-          "abv.format": "abv.search"}
+          "abv.rank": "abv.search", "abv.format": "abv.search"}
 ONCE = ("abv.db", "abv.queries", "abv.batch", "abv.measure",
-        "abv.readback", "abv.names")
+        "abv.readback")
 
 
 @pytest.fixture(scope="module")
@@ -84,7 +83,8 @@ def test_spans_of_a_call_nest_in_one_search(abv_db, mode):
     """Per call: one ``abv.search``, every other span inside its caller's;
     one ``abv.measure`` (the gather) and no ``abv.mask`` (the search builds
     no mask of the DB); ``abv.rank`` and ``abv.format`` once a query;
-    ``abv.stage`` on the call that misses the cache only."""
+    ``abv.stage`` (the DB and its names) on the call that misses the cache
+    only, and no ``abv.names``: nothing of the names is made a call."""
     queries = _queries(abv_db)
     dense_abv._DENSE_CACHE.clear()
     for miss in (True, False):
@@ -95,7 +95,7 @@ def test_spans_of_a_call_nest_in_one_search(abv_db, mode):
         assert parents[0] == ("abv.search", None)
         for name, parent in parents[1:]:
             assert parent == PARENT[name], (name, parent)
-        assert "abv.mask" not in names
+        assert "abv.mask" not in names and "abv.names" not in names
         for name in ONCE:
             assert names.count(name) == 1, name
         assert names.count("abv.rank") == names.count("abv.format") \
@@ -165,7 +165,10 @@ def test_cli_json_report_has_abv_stages_and_counters(abv_db, mode, capsys,
                                                      monkeypatch):
     """``MKSSD_LOG=json composite -s <mode> --dense`` reports the ``abv.*``
     stages, ``abv.queries`` (the .abv queries searched; a non-.abv
-    argument is skipped) and ``abv.lines`` (the text's data lines)."""
+    argument is skipped, its notice printed before any query's block, as
+    the JAX package's dense route prints it) and ``abv.lines`` (the
+    text's data lines); off a card no line counts as formatted there or
+    sent from there to the host writer."""
     monkeypatch.setenv("MKSSD_LOG", "json")
     queries = _queries(abv_db)
     argv = ["composite", "-r", abv_db, "-s", str(mode), "--dense",
@@ -181,4 +184,7 @@ def test_cli_json_report_has_abv_stages_and_counters(abv_db, mode, capsys,
     data = [ln for ln in out.splitlines()
             if ln and not ln.startswith("#") and "\t" in ln]
     assert rep["counters"]["abv.lines"] == len(data) > len(queries)
+    assert not {"abv.format.card", "abv.format.host"} & set(rep["counters"])
+    assert out.index("argument not_an_abv.txt is not a .abv file") < \
+        out.index("#Sample") and out.count("not a .abv file") == 1
     assert rep["meta"]["command"] == "composite"
